@@ -9,7 +9,9 @@ line:
   1. build   — builds the CUDA kernels from ``paa_tpu_torch/csrc`` (nvcc,
                sm_90a) and prints the card's name and power limit.
   2. kernels — each kernel against its plain PyTorch version on the card,
-               at the test shapes and at the main path's shapes, with times.
+               at the test shapes and at the main paths' shapes, with times;
+               K1/K2 also at the long-clip lengths T ∈ {774, 999, 1499}
+               with 16 heads, where the JAX package runs its flash kernel.
   3. tiny    — the committed tiny checkpoint: one fletcher_munson PGD train
                step and one eval step on the card (through the kernels),
                held against the same steps on the CPU (plain versions, f32).
@@ -17,15 +19,29 @@ line:
                random weights from a seed, bf16: B=64 × 10 s of 16 kHz
                audio, 1 warm-up and 3 timed PGD train steps plus one eval
                step; the launch counters show the kernels ran in every layer.
+  5. lv60    — wav2vec2-large-lv60 at full width (24 layers, hidden 1024,
+               16 heads), random weights from a seed, bf16: B=64 × 20 s
+               (T = 999 frames) in 2 microbatches, 1 warm-up and 2 timed
+               PGD train steps plus one eval step, with the launch counts.
+  6. cli     — ``python -m paa_tpu_torch.cli.run_attack`` twice: the tiny
+               checkpoint's clean test eval against the JAX package's
+               recorded numbers, and lv60 on ~20 s synthetic clips; each
+               writes a finite results.json and launches the kernels as
+               often as its steps ask.
 
 Then ``{"kernels": [...]}``, and last ``{"ok": true, "device": {...}}``.
 It exits non-zero when no CUDA device is present; it never runs on the CPU
-instead.
+instead. The CLI runs write under ``chiprun_out/chip_smoke/``.
 """
 
 from __future__ import annotations
 
 import json
+import math
+import os
+import re
+import runpy
+import shutil
 import subprocess
 import sys
 import time
@@ -38,6 +54,7 @@ from paa_tpu.models import checkpoint_io
 from paa_tpu.ops import text
 from paa_tpu_torch import runtime
 from paa_tpu_torch.attack import optimizers, step
+from paa_tpu_torch.cli import parser
 from paa_tpu_torch.config import AttackConfig, ConstraintParams
 from paa_tpu_torch.models import wav2vec2
 from paa_tpu_torch.ops import dsp, psycho
@@ -45,7 +62,10 @@ from paa_tpu_torch.ops.kernels import _lib, attention, fm_norm
 
 SEED = 0
 MAIN_B, MAIN_T = 64, 160_000  # bench.py's shape: batch 64 × 10 s at 16 kHz
+LV60_B, LV60_T, LV60_ACCUM = 64, 320_000, 2  # 20 s clips, T = 999 frames
+LONG_T = (774, 999, 1499)  # 15.5 s (the JAX flash switch), 20 s, 30 s
 TINY_CKPT = "checkpoints/wav2vec2-tiny-synthetic.safetensors"
+RUNS_DIR = os.path.join("chiprun_out", "chip_smoke")
 
 # Tolerances, as max |kernel − plain| / max(max |plain|, 0.1) unless said
 # otherwise.
@@ -176,7 +196,12 @@ def phase_kernels(dev) -> dict:
             results.append(check_attention(2, T, 12, 64, dtype, dev))
         for T in (130, 499):
             results.append(check_attention(2, T, 4, 16, dtype, dev))
-    at_main = {"attention": check_attention(MAIN_B, 499, 12, 64, torch.bfloat16, dev)}
+        for T in LONG_T:  # the shapes of the JAX package's flash kernel (K4)
+            results.append(check_attention(2, T, 16, 64, dtype, dev))
+    at_main = {"attention": check_attention(MAIN_B, 499, 12, 64, torch.bfloat16, dev),
+               # one lv60 microbatch: B/A rows × 20 s
+               "attention_long": check_attention(LV60_B // LV60_ACCUM, 999, 16, 64,
+                                                 torch.bfloat16, dev)}
 
     cfg = AttackConfig(norm_type="fletcher_munson")
     tables = psycho.build_tables(cfg, dev)
@@ -263,34 +288,42 @@ def phase_tiny(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
-def phase_main(dev, card: str) -> dict:
-    mcfg = wav2vec2.get_config("wav2vec2-base")
+def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
+                     timed_steps: int, card: str) -> dict:
+    """One attack configuration at full width: random weights from SEED,
+    bf16 compute and storage, fletcher_munson PGD with ``accum``
+    microbatches. Returns the launch counts of its run."""
+    mcfg = wav2vec2.get_config(preset)
     L = mcfg.num_hidden_layers
     t0 = time.perf_counter()
     model = wav2vec2.init_model(mcfg, seed=SEED).cast_param_storage(torch.bfloat16).to(dev)
-    cfg = AttackConfig(norm_type="fletcher_munson", optimizer_type="pgd", lr=1e-4)
+    cfg = AttackConfig(norm_type="fletcher_munson", optimizer_type="pgd", lr=1e-4,
+                       accum_steps=accum, model_name=preset)
     tables = psycho.build_tables(cfg, dev)
     cparams = ConstraintParams.create(device=dev)
     rng = np.random.default_rng(SEED)
-    audio = torch.from_numpy(rng.standard_normal((MAIN_B, MAIN_T)).astype(np.float32) * 0.1).to(dev)
+    audio = torch.from_numpy(rng.standard_normal((B, T)).astype(np.float32) * 0.1).to(dev)
     labels, pads = (torch.from_numpy(a).to(dev) for a in
-                    text.encode_batch(["the quick brown fox jumps over the lazy dog"] * MAIN_B))
-    weights = torch.ones(MAIN_B, device=dev)
-    p = torch.zeros((1, MAIN_T), device=dev)
+                    text.encode_batch(["the quick brown fox jumps over the lazy dog"] * B))
+    weights = torch.ones(B, device=dev)
+    p = torch.zeros((1, T), device=dev)
     opt = optimizers.init_opt_state(cfg, p)
     train = step.make_train_step(cfg, model, tables)
     evaluate = step.make_eval_step(cfg, model)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
+    # per train step: every layer forward and backward in each microbatch,
+    # one projection; the eval step is one forward pass over the batch
+    per_step = {"attention_fwd": L * accum, "attention_bwd": L * accum, "fm_norm": 1}
+    times = lambda n: {k: v * n for k, v in per_step.items()}
     torch.cuda.reset_peak_memory_stats(dev)
     _lib.reset_launches()
     losses = []
     p, opt, m = train(p, opt, audio, labels, pads, weights, cparams, cfg.lr)  # warm-up
     losses.append(float(m.ctc_loss))
-    check(_lib.launches == {"attention_fwd": L, "attention_bwd": L, "fm_norm": 1},
-          f"main: warm-up step launched {_lib.launches}, want {L}/{L}/1")
-    timed_steps = 3
+    check(_lib.launches == times(1), f"{phase}: warm-up step launched {_lib.launches}, "
+                                     f"want {times(1)}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(timed_steps):
@@ -301,37 +334,150 @@ def phase_main(dev, card: str) -> dict:
     losses.append(float(loss_last))
     n = timed_steps + 1
     train_launches = dict(_lib.launches)
-    check(train_launches == {"attention_fwd": L * n, "attention_bwd": L * n, "fm_norm": n},
-          f"main: {n} train steps launched {train_launches}")
+    check(train_launches == times(n), f"{phase}: {n} train steps launched {train_launches}")
     e = evaluate(p, audio, labels, pads, weights)
     eval_loss = float(e.ctc_loss)
     launches = dict(_lib.launches)
-    check(launches == {"attention_fwd": L * (n + 1), "attention_bwd": L * n, "fm_norm": n},
-          f"main: eval step launched {launches}")
+    want = {**times(n), "attention_fwd": times(n)["attention_fwd"] + L}
+    check(launches == want, f"{phase}: eval step launched {launches}, want {want}")
     peak = torch.cuda.max_memory_allocated(dev)
     p_abs = float(p.abs().max())
     finite = all(np.isfinite(losses + [eval_loss])) and bool(torch.isfinite(p).all())
-    emit({"phase": "main", "model": "wav2vec2-base", "layers": L, "hidden": mcfg.hidden_size,
-          "heads": mcfg.num_attention_heads, "batch": MAIN_B, "samples": MAIN_T,
+    emit({"phase": phase, "model": preset, "layers": L, "hidden": mcfg.hidden_size,
+          "heads": mcfg.num_attention_heads, "batch": B, "samples": T,
+          "frames": mcfg.feat_extract_output_length(T), "accum_steps": accum,
           "compute_dtype": mcfg.compute_dtype, "param_storage": "bfloat16",
           "norm": cfg.norm_type, "optimizer": cfg.optimizer_type, "setup_s": setup_s,
           "step_s": step_s, "steps_per_s": 1.0 / step_s, "timed_steps": timed_steps,
           "losses": losses, "eval_loss": eval_loss, "p_max_abs": p_abs,
           "peak_mem_bytes": peak, "peak_mem_gib": peak / 2**30, "card": card,
-          "launches": launches, "launches_per_train_step": {
-              k: train_launches[k] / n for k in train_launches}})
-    check(finite, "main: non-finite loss or perturbation")
-    check(p_abs > 0.0, "main: the perturbation did not change")
+          "launches": launches, "launches_per_train_step": per_step})
+    check(finite, f"{phase}: non-finite loss or perturbation")
+    check(p_abs > 0.0, f"{phase}: the perturbation did not change")
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the entry point, python -m paa_tpu_torch.cli.run_attack
+# ---------------------------------------------------------------------------
+
+# The JAX package's clean test eval of the tiny checkpoint under the anchor
+# flags, on its TPU in bf16 (benchmarks/quality_r5/cells/*/results.json).
+ANCHOR = {"ctc": 105.607, "wer": 0.0321}
+# bf16 rounds at other places on the card than on the TPU: the port's CPU
+# plain path in bf16 gives 105.605 / 0.0334, in f32 105.351 / 0.0321.
+ANCHOR_TOL = {"ctc_rel": 1e-2, "wer_abs": 5e-3}
+ANCHOR_ARGV = ["--model", "wav2vec2-tiny", "--checkpoint_path", TINY_CKPT,
+               "--dataset", "synthetic", "--synthetic_samples", "2048", "--seed", "5",
+               "--batch_size", "32", "--optimizer_type", "pgd", "--lr", "1e-4"]
+LV60_CLI_ARGV = ["--model", "wav2vec2-large-lv60", "--dataset", "synthetic",
+                 "--synthetic_samples", "96", "--synthetic_words", "44,52",
+                 "--batch_size", "16", "--accum_steps", "2",
+                 "--norm_type", "fletcher_munson", "--optimizer_type", "pgd"]
+
+
+def run_cli(name: str, argv: list[str]) -> tuple[dict, dict, dict]:
+    """Run the entry point as ``python -m`` runs it, in this process so that
+    the launch counters see its kernels: (results.json, run facts, launch
+    counts). One epoch, no inspection samples, a fresh run directory."""
+    root = os.path.join(RUNS_DIR, name)
+    shutil.rmtree(root, ignore_errors=True)
+    argv = argv + ["--num_epochs", "1", "--num_items_to_inspect", "0", "--no_resume",
+                   "--save_root", root]
+    saved_argv = sys.argv
+    sys.argv = ["paa_tpu_torch.cli.run_attack", *argv]
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("paa_tpu_torch.cli.run_attack", run_name="__main__", alter_sys=True)
+        code = 0  # main() returned without sys.exit
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.argv = saved_argv
+    seconds = time.perf_counter() - t0
+    launches = dict(_lib.launches)
+    check(code == 0, f"cli {name}: run_attack exited {code}")
+    (run_dir,) = [d for d, _, files in os.walk(root) if "results.json" in files]
+    with open(os.path.join(run_dir, "results.json")) as f:
+        results = json.load(f)
+    with open(os.path.join(run_dir, "train.log")) as f:
+        split = re.search(r"splits: train=(\d+) eval=(\d+) test=(\d+) \| audio_len=(\d+)",
+                          f.read())
+    check(split is not None, f"cli {name}: no split line in train.log")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        epochs = sum(1 for _ in f)
+    n_train, n_eval, n_test, audio_len = map(int, split.groups())
+    facts = {"run_dir": run_dir, "seconds": seconds, "epochs": epochs, "train": n_train,
+             "eval": n_eval, "test": n_test, "audio_len": audio_len}
+    return results, facts, launches
+
+
+def expected_cli_launches(argv: list[str], facts: dict, fm: bool) -> dict:
+    """What one CLI run launches: each train step runs every layer forward
+    and backward per microbatch and projects once; the clean eval runs once,
+    the perturbed eval once per epoch, the test split clean and perturbed;
+    the initial perturbation is projected once."""
+    args = parser.parse_args(argv)
+    A = args.accum_steps
+    L = wav2vec2.get_config(args.model).num_hidden_layers
+    nb = lambda n: math.ceil(n / args.batch_size)
+    steps = facts["epochs"] * nb(facts["train"])
+    evals = nb(facts["eval"]) * (1 + facts["epochs"]) + 2 * nb(facts["test"])
+    return {"attention_fwd": L * (A * steps + evals), "attention_bwd": L * A * steps,
+            "fm_norm": (steps + 1) if fm else 0}
+
+
+def phase_cli(card: str) -> dict:
+    """Returns the lv60 run's launch counts."""
+    scores = lambda r, key: [r[key]["ctc"], r[key]["wer"]]
+    # (a) the ROADMAP anchor: the tiny checkpoint's clean test eval
+    res, facts, launches = run_cli("anchor", ANCHOR_ARGV)
+    clean = res["final_test_clean"]
+    ctc_rel = abs(clean["ctc"] - ANCHOR["ctc"]) / ANCHOR["ctc"]
+    wer_abs = abs(clean["wer"] - ANCHOR["wer"])
+    want = expected_cli_launches(ANCHOR_ARGV, facts, fm=False)
+    emit({"phase": "cli", "run": "anchor", **facts, "final_test_clean": clean,
+          "reference": ANCHOR, "ctc_rel_err": ctc_rel, "wer_abs_err": wer_abs,
+          "tolerance": ANCHOR_TOL, "launches": launches, "want_launches": want, "card": card})
+    check(res.get("finished_training") is True, "cli anchor: the run did not finish")
+    check(ctc_rel <= ANCHOR_TOL["ctc_rel"], f"cli anchor: clean CTC {clean['ctc']}")
+    check(wer_abs <= ANCHOR_TOL["wer_abs"], f"cli anchor: clean WER {clean['wer']}")
+    check(launches == want, f"cli anchor: launched {launches}, want {want}")
+
+    # (b) lv60 on ~20 s clips, random weights
+    res, facts, launches = run_cli("lv60", LV60_CLI_ARGV)
+    want = expected_cli_launches(LV60_CLI_ARGV, facts, fm=True)
+    values = (scores(res, "eval_score_clean") + scores(res, "eval_score_perturbed")
+              + scores(res, "final_test_perturbed"))
+    emit({"phase": "cli", "run": "lv60", **facts, "clip_s": facts["audio_len"] / 16000,
+          "eval_score_clean": res["eval_score_clean"],
+          "final_test_perturbed": res["final_test_perturbed"],
+          "launches": launches, "want_launches": want, "card": card})
+    check(res.get("finished_training") is True, "cli lv60: the run did not finish")
+    check(facts["audio_len"] / 16000 > 15.5, f"cli lv60: clips of {facts['audio_len']} samples")
+    check(all(math.isfinite(v) for v in values), f"cli lv60: non-finite scores {values}")
+    check(launches == want, f"cli lv60: launched {launches}, want {want}")
+    return launches
+
+
+# (row name, launch counter, source, TPU kernel it replaces, phase whose
+# launches it reports). The JAX package's flash kernel (K4) runs where its
+# fused kernel's score tile no longer fits VMEM, T ≥ 774; on the card K1
+# and K2 cover those lengths, so K4's rows are theirs, counted in lv60.
 KERNELS = (
-    ("attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu",
-     "paa_tpu/ops/pallas/attention.py:107 (_fwd_kernel, via _attend_fwd :196)"),
-    ("attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu",
-     "paa_tpu/ops/pallas/attention.py:133 (_bwd_kernel, via _attend_bwd :218)"),
-    ("fm_norm", "paa_tpu_torch/csrc/fm_norm.cu",
-     "paa_tpu/ops/pallas/fm_norm.py:40 (_kernel, via fm_weighted_power_sum :61)"),
+    ("attention_fwd", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu",
+     "paa_tpu/ops/pallas/attention.py:107 (_fwd_kernel, via _attend_fwd :196)", "main"),
+    ("attention_bwd", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu",
+     "paa_tpu/ops/pallas/attention.py:133 (_bwd_kernel, via _attend_bwd :218)", "main"),
+    ("fm_norm", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu",
+     "paa_tpu/ops/pallas/fm_norm.py:40 (_kernel, via fm_weighted_power_sum :61)", "main"),
+    ("flash_attention_fwd", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu",
+     "paa_tpu/models/wav2vec2.py:766 (_flash_attention, stock Pallas flash_attention, "
+     "forward)", "lv60"),
+    ("flash_attention_bwd", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu",
+     "paa_tpu/models/wav2vec2.py:766 (_flash_attention, stock Pallas flash_attention, "
+     "backward)", "lv60"),
 )
 
 
@@ -351,21 +497,28 @@ def main() -> int:
 
     at_main = phase_kernels(dev)
     phase_tiny(dev)
-    launches = phase_main(dev, smi)
+    launches = {"main": phase_full_width(dev, "main", "wav2vec2-base", MAIN_B, MAIN_T, 1, 3, smi)}
+    torch.cuda.empty_cache()
+    launches["lv60"] = phase_full_width(dev, "lv60", "wav2vec2-large-lv60", LV60_B, LV60_T,
+                                        LV60_ACCUM, 2, smi)
+    torch.cuda.empty_cache()
+    phase_cli(smi)
 
-    att = at_main["attention"]
+    def attn_numbers(att):
+        bwd_err = max(att["dq_max_abs_err"], att["dk_max_abs_err"], att["dv_max_abs_err"])
+        return ((att["o_max_abs_err"], att["fwd_ms"], att["fwd_plain_ms"]),
+                (bwd_err, att["bwd_ms"], att["bwd_plain_ms"]))
+
     fm = at_main["fm_norm"]
-    numbers = {
-        "attention_fwd": (att["o_max_abs_err"], att["fwd_ms"], att["fwd_plain_ms"]),
-        "attention_bwd": (max(att["dq_max_abs_err"], att["dk_max_abs_err"],
-                              att["dv_max_abs_err"]), att["bwd_ms"], att["bwd_plain_ms"]),
-        "fm_norm": (fm["max_abs_err"], fm["ms"], fm["plain_ms"]),
-    }
+    numbers = dict(zip(("attention_fwd", "attention_bwd"), attn_numbers(at_main["attention"])))
+    numbers.update(zip(("flash_attention_fwd", "flash_attention_bwd"),
+                       attn_numbers(at_main["attention_long"])))
+    numbers["fm_norm"] = (fm["max_abs_err"], fm["ms"], fm["plain_ms"])
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": numbers[name][0],
+         "launches": launches[phase][counter], "max_abs_err": numbers[name][0],
          "ms": numbers[name][1], "plain_ms": numbers[name][2]}
-        for name, src, rep in KERNELS]})
+        for name, counter, src, rep, phase in KERNELS]})
     check(not any(m.split(".")[0] in ("jax", "flax", "optax") for m in sys.modules),
           "JAX was imported")
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

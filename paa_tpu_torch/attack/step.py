@@ -2,8 +2,8 @@
 
 Port of ``paa_tpu/attack/step.py:35-168``. A train step composes and clamps
 ``audio + p``, runs the frozen model, takes the weighted CTC sum, the
-gradient with respect to ``p`` only, the optimizer update and the
-projection. The eval step adds ``p`` *without* clamping, as the reference's
+gradient with respect to ``p`` only (summed over ``accum_steps``
+microbatches), the optimizer update and the projection. The eval step adds ``p`` *without* clamping, as the reference's
 evaluation does.
 
 The JAX steps take the model parameters as an argument; here the frozen
@@ -28,8 +28,7 @@ class StepMetrics(NamedTuple):
     greedy_ids: torch.Tensor  # (B, frames) int32 argmax ids
 
 
-def _grad_and_metrics(model, cfg: AttackConfig, p, audio, labels, label_paddings, weights):
-    """``(loss, greedy_ids, ∂loss/∂p)``."""
+def _microbatch(model, cfg: AttackConfig, p, audio, labels, label_paddings, weights):
     p = p.detach().requires_grad_(True)
     perturbed = audio + p
     if cfg.clamp_audio:
@@ -41,13 +40,36 @@ def _grad_and_metrics(model, cfg: AttackConfig, p, audio, labels, label_paddings
     return loss.detach(), ctc.greedy_ids(logits.detach()), grad
 
 
+def _grad_and_metrics(model, cfg: AttackConfig, p, audio, labels, label_paddings, weights):
+    """``(loss, greedy_ids, ∂loss/∂p)``.
+
+    With ``cfg.accum_steps = A > 1`` the batch runs as A microbatches of
+    B/A rows, in order, and their losses and gradients are summed; the
+    'sum' CTC reduction is linear in the batch, so this is the one-pass
+    result with a microbatch's activation memory (reference:
+    ``paa_tpu/attack/step.py:72-104``)."""
+    A = cfg.accum_steps
+    if A <= 1:
+        return _microbatch(model, cfg, p, audio, labels, label_paddings, weights)
+    B = audio.shape[0]
+    if B % A:
+        raise ValueError(f"batch size {B} not divisible by accum_steps {A}")
+    n = B // A
+    loss, grad, ids = None, None, []
+    for i in range(A):
+        rows = slice(i * n, (i + 1) * n)
+        l, g_ids, g = _microbatch(model, cfg, p, audio[rows], labels[rows],
+                                  label_paddings[rows], weights[rows])
+        loss = l if loss is None else loss + l
+        grad = g if grad is None else grad + g
+        ids.append(g_ids)
+    return loss, torch.cat(ids), grad
+
+
 def make_train_step(cfg: AttackConfig, model: torch.nn.Module, tables: PsychoTables) -> Callable:
     """Train step
     ``(p, opt_state, audio, labels, label_paddings, weights, cparams, lr)
     -> (new_p, new_opt_state, StepMetrics)``. The model is frozen."""
-    if cfg.accum_steps > 1:
-        raise NotImplementedError(
-            "accum_steps > 1 is not ported yet (ROADMAP.md, queue 1: accum_steps)")
     if cfg.tp > 1:
         raise NotImplementedError("tp > 1 is not ported yet (ROADMAP.md, queue 1: dp/tp)")
     model.requires_grad_(False).eval()

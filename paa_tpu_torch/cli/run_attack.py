@@ -1,0 +1,144 @@
+"""Attack run entry point — ``python -m paa_tpu_torch.cli.run_attack <flags>``.
+
+The port of ``paa_tpu/cli/run_attack.py``: setup → data → frozen model →
+perturbation → epoch loop → finalize, with the same run directory
+(``logs/{attack_mode}/{dataset}/{norm}_{size}_{mode}_{opt}``), resume
+discovery, ``results.json``, metrics log and ``perturbation.npy``, and the
+same exit codes: 0 on success, 1 on a failure, which also writes a failure
+``results.json``. It runs on the CUDA device by default and on the CPU with
+``--platform cpu``; without a CUDA device the default run fails.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import sys
+
+import torch
+
+from paa_tpu.data import datasets
+from paa_tpu.train import artifacts, log_helpers
+from paa_tpu_torch import runtime
+from paa_tpu_torch.cli import parser as parser_lib
+from paa_tpu_torch.config import SWEEP_ARG
+from paa_tpu_torch.data import pipeline as pipeline_lib
+from paa_tpu_torch.models import wav2vec2
+from paa_tpu_torch.train import checkpoint, loop
+
+
+def _parse_words(spec: str | None) -> tuple[int, int] | None:
+    """``--synthetic_words "MIN,MAX"`` → (min, max) or None."""
+    if not spec:
+        return None
+    try:
+        lo, hi = (int(v) for v in spec.split(","))
+    except ValueError:
+        raise SystemExit(f"--synthetic_words expects 'MIN,MAX' (two integers), got {spec!r}")
+    if lo < 1 or hi < lo:
+        raise SystemExit(f"--synthetic_words needs 1 <= MIN <= MAX, got {spec!r}")
+    return lo, hi
+
+
+def make_save_dir(args) -> str:
+    """logs/{attack_mode}/{dataset}/{norm}_{size}_{mode}_{opt}."""
+    args.attack_size_string = f"{getattr(args, SWEEP_ARG[args.norm_type])}"
+    root = args.save_root or os.path.join(os.getcwd(), "logs")
+    return os.path.join(
+        root, args.attack_mode, args.dataset,
+        f"{args.norm_type}_{args.attack_size_string}_{args.attack_mode}_{args.optimizer_type}",
+    )
+
+
+def select_device(platform: str) -> torch.device:
+    """``cuda``: the CUDA device, or an error when there is none."""
+    return runtime.require_cuda() if platform == "cuda" else torch.device("cpu")
+
+
+def load_model(args, device: torch.device) -> wav2vec2.Wav2Vec2ForCTC:
+    """The frozen Wav2Vec2-CTC on ``device``: weights from
+    ``--checkpoint_path`` (a local HF ``model.safetensors`` or
+    ``pytorch_model.bin``, read without torch's unpickler), or else drawn
+    from ``--seed``. The HF cache loader of the JAX package is not ported:
+    the port has no ``transformers``."""
+    log = logging.getLogger("paa_tpu")
+    overrides = {"do_normalize": False} if args.no_input_normalize else {}
+    mcfg = wav2vec2.get_config(args.model, compute_dtype=args.compute_dtype,
+                               fe_gelu=args.fe_gelu, **overrides)
+    if args.checkpoint_path:
+        from paa_tpu.models import checkpoint_io
+
+        sd = checkpoint_io.load_state_dict(args.checkpoint_path)
+        model = wav2vec2.Wav2Vec2ForCTC(mcfg)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+        model.requires_grad_(False).eval()
+        log.info("loaded weights from %s", args.checkpoint_path)
+    else:
+        log.warning("no --checkpoint_path: %s weights drawn at random from --seed %d",
+                    args.model, args.seed)
+        model = wav2vec2.init_model(mcfg, seed=args.seed)
+    storage = args.param_storage or args.compute_dtype
+    if storage != "float32":
+        model.cast_param_storage(getattr(torch, storage))
+        log.info("matmul and conv weights stored as %s", storage)
+    return model.to(device)
+
+
+def main(args) -> int:
+    save_dir = make_save_dir(args)
+    os.makedirs(save_dir, exist_ok=True)
+    log = log_helpers.setup_logging(save_dir)
+    log_helpers.log_args(log, vars(args))
+    log.info("norm_type=%s | attack_size=%s", args.norm_type, args.attack_size_string)
+
+    try:
+        device = select_device(args.platform)
+        log.info("device: %s%s", device,
+                 f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+        cfg = parser_lib.config_from_args(args)
+        cparams = parser_lib.constraint_params_from_args(args, device=device)
+
+        samples = datasets.load_dataset_tuples(
+            args.dataset,
+            seed=args.seed,
+            data_root=args.data_root,
+            small_data=args.small_data,
+            synthetic_samples=args.synthetic_samples,
+            synthetic_words=_parse_words(args.synthetic_words),
+        )
+        pipe = pipeline_lib.build_pipeline(
+            samples, relative_audio_length=args.relative_audio_length,
+            seed=args.seed, target_sr=args.sr,
+        )
+        log.info("splits: train=%d eval=%d test=%d | audio_len=%d (%.1fs)",
+                 len(pipe.train), len(pipe.eval), len(pipe.test),
+                 pipe.audio_len, pipe.audio_len / args.sr)
+
+        model = load_model(args, device)
+        init_p = None
+        if args.resume_from:
+            log.info("Resuming perturbation from: %s", args.resume_from)
+            init_p = checkpoint.load_perturbation(args.resume_from)
+        loop.run_attack(
+            cfg, model, pipe, save_dir,
+            cparams=cparams,
+            num_items_to_inspect=args.num_items_to_inspect,
+            resume=not args.no_resume and not args.small_data,
+            init_p=init_p,
+            tensorboard=args.tensorboard,
+        )
+        return 0
+    except Exception as e:  # the failure report
+        log.exception("Run failed with an exception: %s", e)
+        try:
+            artifacts.save_json_results(
+                save_dir, args.norm_type, args.attack_size_string,
+                epoch=-1, finished_training=False, error=str(e),
+            )
+        except OSError:
+            log.exception("could not write the failure results.json")
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(parser_lib.parse_args()))

@@ -145,3 +145,40 @@ class ConstraintParams(NamedTuple):
             max_freq=f32(max_freq),
             max_phon_level=f32(max_phon_level),
         )
+
+    @classmethod
+    def from_args(cls, args, device: torch.device | str | None = None) -> "ConstraintParams":
+        """From an argparse namespace with the reference's flag names."""
+        return cls.create(
+            fm_epsilon=args.fm_epsilon,
+            l2_size=args.l2_size,
+            l1_size=args.l1_size,
+            linf_size=args.linf_size,
+            snr_db=args.snr_db,
+            tv_epsilon=args.tv_epsilon,
+            min_freq=args.min_freq_attack,
+            max_freq=args.max_freq_attack,
+            max_phon_level=args.max_phon_level,
+            device=device,
+        )
+
+
+# norm_type -> the ConstraintParams field that sizes its feasible set
+SWEEP_FIELD = {
+    "min_max_freqs": "min_freq",
+    "fletcher_munson": "fm_epsilon",
+    "max_phon": "max_phon_level",
+    "l2": "l2_size",
+    "l1": "l1_size",
+    "linf": "linf_size",
+    "snr": "snr_db",
+    "tv": "tv_epsilon",
+}
+
+# norm_type -> the command-line flag that carries that size
+SWEEP_ARG = {**SWEEP_FIELD, "min_max_freqs": "min_freq_attack"}
+
+
+def attack_size_value(cfg: AttackConfig, params: ConstraintParams) -> float:
+    """The scalar size of the active constraint, for run naming."""
+    return float(getattr(params, SWEEP_FIELD[cfg.norm_type]))

@@ -1,8 +1,12 @@
 // K2 — attention backward on Hopper.
 //
 // Replaces paa_tpu/ops/pallas/attention.py:_bwd_kernel (launched by
-// _attend_bwd). It recomputes p = exp(s − lse) from (q, k, lse), with padded
-// query rows and padded keys at p = 0, then dp = do·vᵀ, ds = p·(dp − D),
+// _attend_bwd), and the backward of the stock Pallas flash_attention
+// (paa_tpu/models/wav2vec2.py:_flash_attention, T >= 774; see
+// attention_fwd.cu).
+//
+// It recomputes p = exp(s − lse) from (q, k, lse), with padded query rows
+// and padded keys at p = 0, then dp = do·vᵀ, ds = p·(dp − D),
 // dq = ds·k, dk = dsᵀ·q, dv = pᵀ·do. p and ds are rounded to the input type
 // before the three gradient products, as the TPU kernel rounds them.
 //

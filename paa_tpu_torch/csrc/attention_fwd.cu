@@ -1,9 +1,14 @@
 // K1 — attention forward on Hopper.
 //
 // Replaces paa_tpu/ops/pallas/attention.py:_fwd_kernel (launched by
-// _attend_fwd). Per (batch, head): s = q·kᵀ (q pre-scaled), keys at or past
-// T masked to -1e30, softmax in f32, o = p·v; it also stores the row
-// logsumexp lse = m + log l, the one residual the backward needs.
+// _attend_fwd), and the forward of the stock Pallas flash_attention that
+// paa_tpu/models/wav2vec2.py:_flash_attention runs from T = 774 frames on
+// (K4): tiled by 64 with an online softmax and masked tail tiles, this
+// kernel covers any T, so K4 needs no kernel of its own.
+//
+// Per (batch, head): s = q·kᵀ (q pre-scaled), keys at or past T masked to
+// -1e30, softmax in f32, o = p·v; it also stores the row logsumexp
+// lse = m + log l, the one residual the backward needs.
 //
 // What bounds it on the H100: at the main-path shape (B=64, T=499, H=12,
 // d=64, bf16) one layer's forward is 4·B·H·T²·d ≈ 49 GFLOP against

@@ -40,6 +40,8 @@ def params_from_jax(params: dict, cfg: Wav2Vec2Config) -> dict[str, torch.Tensor
         layer = fe[f"conv_layers_{i}"]
         pre = f"wav2vec2.feature_extractor.conv_layers.{i}"
         sd[f"{pre}.conv.weight"] = f32(layer["conv_kernel"]).transpose(2, 1, 0)  # WIO → (O, I, K)
+        if cfg.conv_bias:
+            sd[f"{pre}.conv.bias"] = f32(layer["conv_bias"])
         if "layer_norm" in layer:
             norm(f"{pre}.layer_norm", layer["layer_norm"])
 

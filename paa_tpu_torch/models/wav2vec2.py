@@ -1,16 +1,22 @@
 """Wav2Vec2-CTC in PyTorch — the frozen ASR target of the attack.
 
-Port of ``paa_tpu/models/wav2vec2.py`` for the presets ``wav2vec2-tiny``
-and ``wav2vec2-base`` (group-norm feature extractor, post-LN encoder). The
-module tree uses HF's state-dict names, so the committed tiny checkpoint
-and an HF ``Wav2Vec2ForCTC`` state dict load with ``load_state_dict``.
+Port of ``paa_tpu/models/wav2vec2.py`` for its three presets:
+``wav2vec2-tiny`` and ``wav2vec2-base`` (group-norm feature extractor,
+post-LN encoder) and ``wav2vec2-large-lv60`` (conv bias and a LayerNorm in
+every feature-extractor layer, pre-LN "stable layer norm" encoder with the
+final LayerNorm after the stack, and the input waveform normalised inside
+the forward). The module tree uses HF's state-dict names, so the committed
+tiny checkpoint and an HF ``Wav2Vec2ForCTC`` state dict load with
+``load_state_dict``.
 
 Numerics follow the reference's placement:
   * matmuls and convs run in ``compute_dtype`` (bf16 for base, f32 for tiny);
   * the layer-0 GroupNorm and every LayerNorm take float32 statistics and
-    return the compute dtype;
+    return the compute dtype; the feature extractor's per-layer LayerNorm
+    keeps only its compute-dtype input for the backward, never a float32
+    copy of the layer;
   * the feature extractor's GELU is the tanh approximation under bf16 and
-    exact erf under f32 (the reference's ``fe_gelu="auto"``);
+    exact erf under f32 (``fe_gelu="auto"``; "exact" and "tanh" force one);
   * the positional conv is weight-normed per tap (dim=2), grouped, with
     the SamePad trim of one frame for an even kernel;
   * the ``lm_head`` runs in float32;
@@ -43,10 +49,23 @@ class Wav2Vec2Config:
     conv_dim: Sequence[int] = (512, 512, 512, 512, 512, 512, 512)
     conv_kernel: Sequence[int] = (10, 3, 3, 3, 3, 2, 2)
     conv_stride: Sequence[int] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = False
+    feat_extract_norm: str = "group"  # "group" (layer 0 only) | "layer" (every layer)
+    do_stable_layer_norm: bool = False  # pre-LN encoder layers
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     layer_norm_eps: float = 1e-5
+    # zero-mean, unit-variance input waveform per row, inside the
+    # differentiable forward (HF's processor does it for lv60)
+    do_normalize: bool = False
     compute_dtype: str = "bfloat16"
+    fe_gelu: str = "auto"  # "auto" | "exact" | "tanh"
+
+    def __post_init__(self):
+        for name, allowed in (("feat_extract_norm", ("group", "layer")),
+                              ("fe_gelu", ("auto", "exact", "tanh"))):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name}={getattr(self, name)!r}; expected one of {allowed}")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -62,6 +81,17 @@ class Wav2Vec2Config:
 PRESETS = {
     # facebook/wav2vec2-base-960h
     "wav2vec2-base": Wav2Vec2Config(),
+    # facebook/wav2vec2-large-960h-lv60-self
+    "wav2vec2-large-lv60": Wav2Vec2Config(
+        hidden_size=1024,
+        num_hidden_layers=24,
+        num_attention_heads=16,
+        intermediate_size=4096,
+        conv_bias=True,
+        feat_extract_norm="layer",
+        do_stable_layer_norm=True,
+        do_normalize=True,
+    ),
     "wav2vec2-tiny": Wav2Vec2Config(
         hidden_size=64,
         num_hidden_layers=2,
@@ -90,6 +120,39 @@ def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps).to(x.dtype)
 
 
+class _ChannelLayerNorm(torch.autograd.Function):
+    """LayerNorm over the channels of a ``(B, C, T)`` activation: float32
+    statistics, output in the input's dtype. The backward keeps the input
+    (in its own dtype) and the per-frame mean and 1/std, and recomputes the
+    normalised value from them; stock autograd of a float32 LayerNorm would
+    keep a float32 copy of every feature-extractor layer (the reference
+    keeps it out of HBM the same way, ``_FeNorm``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float):
+        xf = x.to(torch.float32, copy=True)
+        var, mu = torch.var_mean(xf, dim=1, correction=0, keepdim=True)
+        rstd = torch.rsqrt(var + eps)
+        y = xf.sub_(mu).mul_(rstd).mul_(weight[:, None]).add_(bias[:, None]).to(x.dtype)
+        ctx.save_for_backward(x, mu, rstd, weight)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        # in place where it can be: at 20 s and B=32 one float32 copy of
+        # layer 0 is 4.2 GB, and this keeps three of them alive at a time
+        x, mu, rstd, weight = ctx.saved_tensors
+        xhat = x.to(torch.float32, copy=True).sub_(mu).mul_(rstd)
+        gf = g.to(torch.float32, copy=True)
+        dw = (gf * xhat).sum((0, 2)) if ctx.needs_input_grad[1] else None
+        db = gf.sum((0, 2)) if ctx.needs_input_grad[2] else None
+        dxhat = gf.mul_(weight[:, None])
+        m1 = dxhat.mean(1, keepdim=True)
+        m2 = (dxhat * xhat).mean(1, keepdim=True)
+        dx = dxhat.sub_(m1).sub_(xhat.mul_(m2)).mul_(rstd).to(x.dtype)
+        return dx, dw, db, None
+
+
 class ConvLayer(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config, layer_id: int):
         super().__init__()
@@ -97,22 +160,29 @@ class ConvLayer(nn.Module):
         out_ch = cfg.conv_dim[layer_id]
         self.stride = cfg.conv_stride[layer_id]
         self.conv = nn.Conv1d(in_ch, out_ch, cfg.conv_kernel[layer_id],
-                              stride=self.stride, bias=False)
-        # per-channel GroupNorm over time on layer 0 only (base checkpoint)
-        self.layer_norm = (
-            nn.GroupNorm(out_ch, out_ch, eps=cfg.layer_norm_eps, affine=True)
-            if layer_id == 0 else None
-        )
+                              stride=self.stride, bias=cfg.conv_bias)
+        if cfg.feat_extract_norm == "layer":  # every layer, over channels (lv60)
+            self.layer_norm = nn.LayerNorm(out_ch, eps=cfg.layer_norm_eps)
+        elif layer_id == 0:  # per-channel GroupNorm over time (base)
+            self.layer_norm = nn.GroupNorm(out_ch, out_ch, eps=cfg.layer_norm_eps, affine=True)
+        else:
+            self.layer_norm = None
+        self.gelu = cfg.fe_gelu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, C_in, T)
         dt = x.dtype
         x = F.conv1d(x, self.conv.weight.to(dt), None, self.stride)
-        if self.layer_norm is not None:
-            n = self.layer_norm
+        if self.conv.bias is not None:  # added in the compute dtype after the conv
+            x = x + self.conv.bias.to(dt)[:, None]
+        n = self.layer_norm
+        if isinstance(n, nn.LayerNorm):
+            x = _ChannelLayerNorm.apply(x, n.weight, n.bias, n.eps)
+        elif n is not None:
             x = F.group_norm(x.float(), n.num_groups, n.weight, n.bias, n.eps).to(dt)
-        # tanh GELU under bf16, where its error is below the cast's own;
-        # exact erf under f32
-        return F.gelu(x, approximate="tanh" if dt == torch.bfloat16 else "none")
+        # "auto": tanh GELU under bf16, where its error is below the cast's
+        # own; exact erf under f32
+        tanh = self.gelu == "tanh" or (self.gelu == "auto" and dt == torch.bfloat16)
+        return F.gelu(x, approximate="tanh" if tanh else "none")
 
 
 class FeatureExtractor(nn.Module):
@@ -190,16 +260,20 @@ class FeedForward(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """One post-LN transformer layer (base)."""
+    """One transformer layer: post-LN (base) or pre-LN (lv60)."""
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
+        self.pre_ln = cfg.do_stable_layer_norm
         self.attention = SelfAttention(cfg)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.feed_forward = FeedForward(cfg)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pre_ln:
+            x = x + self.attention(_layer_norm(x, self.layer_norm))
+            return x + self.feed_forward(_layer_norm(x, self.final_layer_norm))
         x = _layer_norm(x + self.attention(x), self.layer_norm)
         return _layer_norm(x + self.feed_forward(x), self.final_layer_norm)
 
@@ -207,15 +281,19 @@ class EncoderLayer(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
+        self.pre_ln = cfg.do_stable_layer_norm
         self.pos_conv_embed = PositionalConvEmbedding(cfg)
+        # before the stack (post-LN), or after it (pre-LN); one HF name
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _layer_norm(x + self.pos_conv_embed(x), self.layer_norm)
+        x = x + self.pos_conv_embed(x)
+        if not self.pre_ln:
+            x = _layer_norm(x, self.layer_norm)
         for layer in self.layers:
             x = layer(x)
-        return x
+        return _layer_norm(x, self.layer_norm) if self.pre_ln else x
 
 
 class Wav2Vec2Model(nn.Module):
@@ -240,11 +318,12 @@ class Wav2Vec2ForCTC(nn.Module):
         self.cfg = cfg
         self.wav2vec2 = Wav2Vec2Model(cfg)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size)
-        # HF checkpoints carry the spec-augment mask embedding, which only
-        # training uses; drop it so their state dicts load as they are
-        self._register_load_state_dict_pre_hook(_drop_spec_augment)
+        self._register_load_state_dict_pre_hook(_hf_compat)
 
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        if self.cfg.do_normalize:  # per row, population variance, in f32
+            var, mu = torch.var_mean(audio, dim=-1, correction=0, keepdim=True)
+            audio = (audio - mu) * torch.rsqrt(var + 1e-7)
         x = self.wav2vec2(audio)
         return F.linear(x.float(), self.lm_head.weight, self.lm_head.bias)
 
@@ -263,8 +342,19 @@ class Wav2Vec2ForCTC(nn.Module):
         return self
 
 
-def _drop_spec_augment(state_dict, prefix, *_args):
+_LEGACY_WEIGHT_NORM = {"weight_g": "parametrizations.weight.original0",
+                       "weight_v": "parametrizations.weight.original1"}
+
+
+def _hf_compat(state_dict, prefix, *_args):
+    """HF checkpoints carry the spec-augment mask embedding, which only
+    training uses: drop it. Older dumps name the positional conv's weight
+    norm ``weight_g``/``weight_v``: rename them."""
     state_dict.pop(prefix + "wav2vec2.masked_spec_embed", None)
+    pce = prefix + "wav2vec2.encoder.pos_conv_embed.conv."
+    for old, new in _LEGACY_WEIGHT_NORM.items():
+        if pce + old in state_dict:
+            state_dict[pce + new] = state_dict.pop(pce + old)
 
 
 def init_model(cfg: Wav2Vec2Config, seed: int = 0) -> Wav2Vec2ForCTC:

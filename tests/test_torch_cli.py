@@ -1,0 +1,120 @@
+"""The port's command line against paa_tpu.cli: the same argv gives the same
+AttackConfig, ConstraintParams and run directory; every TPU-only flag the
+port cannot honour is refused; the entry point runs on the CPU with
+``--platform cpu`` and fails without a CUDA device by default."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from paa_tpu.cli import parser as jparser
+from paa_tpu.cli import run_attack as jrun
+from paa_tpu_torch.cli import parser as tparser
+from paa_tpu_torch.cli import run_attack as trun
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY_CKPT = os.path.join(REPO, "checkpoints", "wav2vec2-tiny-synthetic.safetensors")
+
+ARGVS = [
+    [],
+    # the reference's own flags
+    ["--batch_size", "1", "--lr", "1e-4", "--early_stopping", "4", "--num_epochs", "5",
+     "--gamma", "0.9", "--step_size", "2", "--dataset", "LibreeSpeech", "--resume_from",
+     "x.npy", "--target_reps", "5", "--target", "delete", "--fm_epsilon", "2", "--l2_size",
+     "0.05", "--linf_size", "1e-4", "--snr_db", "64", "--min_freq_attack", "120",
+     "--max_freq_attack", "20000", "--tv_epsilon", "1e-3", "--max_phon_level", "20",
+     "--phon_reference_db", "65", "--sr", "16000", "--n_fft", "1024", "--hop_length", "256",
+     "--win_length", "1024", "--relative_audio_length", "0.8", "--seed", "5", "--small_data",
+     "--num_items_to_inspect", "12"],
+    ["--norm_type", "snr", "--snr_db", "42", "--attack_mode", "targeted", "--optimizer_type",
+     "pgd", "--model", "wav2vec2-tiny", "--compute_dtype", "float32"],
+    # the lv60 long-clip run, with the flags the port accepts as they are
+    ["--model", "wav2vec2-large-lv60", "--dataset", "synthetic", "--synthetic_words", "44,52",
+     "--batch_size", "16", "--accum_steps", "2", "--norm_type", "fletcher_munson",
+     "--optimizer_type", "pgd", "--use_pallas_fm", "--no_remat", "--no_device_cache",
+     "--attention_impl", "flash", "--fe_gelu", "exact", "--l1_size", "3"],
+]
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=["defaults", "reference_flags", "targeted_snr",
+                                             "lv60_long"])
+def test_same_argv_same_config(argv):
+    jargs = jparser.create_arg_parser().parse_args(argv)
+    targs = tparser.parse_args(argv)
+    want = jparser.config_from_args(jargs)
+    got = tparser.config_from_args(targs)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    jcp = jparser.constraint_params_from_args(jargs)
+    tcp = tparser.constraint_params_from_args(targs)
+    for name in jcp._fields:
+        assert float(getattr(tcp, name)) == float(getattr(jcp, name)), name
+    assert trun.make_save_dir(targs) == jrun.make_save_dir(jargs)
+    # every flag the reference parser knows exists in the port's, with its default
+    jdefaults = vars(jparser.create_arg_parser().parse_args([]))
+    tdefaults = vars(tparser.create_arg_parser().parse_args([]))
+    assert set(jdefaults) == set(tdefaults)
+    differ = {k for k in jdefaults if jdefaults[k] != tdefaults[k]}
+    assert differ == {"platform", "device_probe_timeout"}
+
+
+@pytest.mark.parametrize("argv", [
+    ["--attention_impl", "xla"],
+    ["--no_pallas_fm"],
+    ["--remat"],
+    ["--remat_policy", "save_cheap"],
+    ["--device_cache"],
+    ["--tp", "2"],
+    ["--conv_impl", "hybrid"],
+    ["--device_probe_timeout", "60"],
+    ["--profile"],
+    ["--debug_plots"],
+    ["--platform", "tpu"],
+])
+def test_tpu_only_flags_are_refused(argv, capsys):
+    with pytest.raises(SystemExit) as e:
+        tparser.parse_args(argv)
+    assert e.value.code == 2
+    assert argv[0] in capsys.readouterr().err
+
+
+def test_dense_attention_is_accepted_on_the_cpu():
+    assert tparser.parse_args(["--attention_impl", "xla", "--platform", "cpu"]).platform == "cpu"
+
+
+def test_entry_point_runs_on_the_cpu(tmp_path):
+    """``--platform cpu``: one epoch on the tiny checkpoint writes the run
+    directory of the JAX CLI."""
+    args = tparser.parse_args([
+        "--platform", "cpu", "--model", "wav2vec2-tiny", "--checkpoint_path", TINY_CKPT,
+        "--dataset", "synthetic", "--synthetic_samples", "48", "--batch_size", "8",
+        "--num_epochs", "1", "--norm_type", "fletcher_munson", "--optimizer_type", "pgd",
+        "--accum_steps", "2", "--num_items_to_inspect", "0", "--save_root", str(tmp_path),
+        "--tensorboard"])
+    assert trun.main(args) == 0
+    run_dir = trun.make_save_dir(args)
+    assert run_dir == str(tmp_path / "untargeted" / "synthetic" / "fletcher_munson_2_untargeted_pgd")
+    results = json.loads(open(os.path.join(run_dir, "results.json")).read())
+    assert results["finished_training"] is True and results["attack_size"] == 2.0
+    for f in ("perturbation.npy", "metrics.jsonl", "train.log", "attack_state.pt", "tb"):
+        assert os.path.exists(os.path.join(run_dir, f)), f
+
+
+def test_default_platform_without_a_gpu_fails(tmp_path):
+    """``python -m paa_tpu_torch.cli.run_attack`` on the default
+    ``--platform cuda`` with no CUDA device exits 1 with a failure
+    results.json; it does not carry on on the CPU."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "paa_tpu_torch.cli.run_attack", "--model", "wav2vec2-tiny",
+         "--dataset", "synthetic", "--synthetic_samples", "48", "--norm_type", "linf",
+         "--save_root", str(tmp_path)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 1
+    results = json.loads((tmp_path / "untargeted" / "synthetic" / "linf_0.0001_untargeted_adam"
+                          / "results.json").read_text())
+    assert "no CUDA device" in results["error"] and results["finished_training"] is False

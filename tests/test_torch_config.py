@@ -45,7 +45,7 @@ def test_constraint_params_defaults_match():
         assert float(getattr(got, name)) == float(getattr(want, name)), name
 
 
-@pytest.mark.parametrize("preset", ["wav2vec2-tiny", "wav2vec2-base"])
+@pytest.mark.parametrize("preset", ["wav2vec2-tiny", "wav2vec2-base", "wav2vec2-large-lv60"])
 def test_params_from_jax_matches_export_hf_state_dict(preset):
     jc = jw2v.get_config(preset, num_hidden_layers=2)
     params = jw2v.init_params(jc, example_len=2000)
@@ -60,7 +60,7 @@ def test_params_from_jax_matches_export_hf_state_dict(preset):
 
 
 def test_model_presets_match_reference_geometry():
-    for name in ("wav2vec2-tiny", "wav2vec2-base"):
+    for name in ("wav2vec2-tiny", "wav2vec2-base", "wav2vec2-large-lv60"):
         j, t = jw2v.get_config(name), tw2v.get_config(name)
         for f in dataclasses.fields(tw2v.Wav2Vec2Config):
             assert getattr(t, f.name) == getattr(j, f.name), (name, f.name)
@@ -77,6 +77,10 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax'))\n"
         "assert not bad, bad\n"
+        "need = {'paa_tpu_torch.cli.run_attack', 'paa_tpu_torch.cli.parser',\n"
+        "        'paa_tpu_torch.train.loop', 'paa_tpu_torch.train.checkpoint',\n"
+        "        'paa_tpu_torch.data.pipeline'}\n"
+        "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('paa_tpu_torch')]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -84,7 +88,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15  # every module of the package was imported
+    assert int(out.stdout.strip()) >= 24  # every module of the package was imported
 
 
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):

@@ -1,5 +1,6 @@
 """The CUDA kernels K1, K2 and K3 against their plain PyTorch versions on a
-GPU, and the step's launch counts. Every test needs a CUDA device and skips
+GPU (K1/K2 also at the long-clip lengths where the JAX package runs its
+flash kernel, K4), and the step's launch counts. Every test needs a CUDA device and skips
 without one (the kernels have no CPU mode).
 
 The file imports no JAX, so it also runs on a machine that has none:
@@ -34,7 +35,10 @@ def _rel(a, b):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T, heads, d", [(1, 12, 64), (130, 12, 64), (499, 12, 64),
-                                         (640, 12, 64), (130, 4, 16), (499, 16, 64)])
+                                         (640, 12, 64), (130, 4, 16), (499, 16, 64),
+                                         # the JAX package's flash-kernel lengths (K4):
+                                         # 15.5 s, 20 s and 30 s, ragged last tiles
+                                         (774, 16, 64), (999, 16, 64), (1499, 16, 64)])
 def test_attention_kernels_match_plain(cuda, dtype, T, heads, d):
     g = torch.Generator(device=cuda).manual_seed(T)
     q, k, v, do = ((torch.randn((2, T, heads * d), generator=g, device=cuda) * 0.5).to(dtype)
@@ -90,3 +94,40 @@ def test_fm_projection_goes_through_the_kernel(cuda):
     want = project(p, torch.device("cpu"))
     assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
     assert float((want - p).abs().max()) > 1e-3  # p lay outside the ball
+
+
+def test_lv60_flags_accumulated_step_on_the_card(cuda):
+    """The lv60 flags on tiny widths, float32, A=2: the card's train step
+    launches K1/K2 once per layer in each microbatch and K3 once, and its
+    loss and new p match the CPU's plain path."""
+    from paa_tpu.ops import text
+    from paa_tpu_torch.attack import step
+    from paa_tpu_torch.models import wav2vec2
+
+    mcfg = wav2vec2.get_config("wav2vec2-tiny", conv_bias=True, feat_extract_norm="layer",
+                               do_stable_layer_norm=True, do_normalize=True)
+    cfg = AttackConfig(norm_type="fletcher_munson", optimizer_type="pgd", accum_steps=2)
+    g = torch.Generator().manual_seed(0)
+    audio = torch.randn((4, 16000), generator=g) * 0.1
+    p = torch.randn((1, 16000), generator=g) * 1e-3
+    labels, pads = (torch.from_numpy(a) for a in
+                    text.encode_batch(["hello world", "delete", "test tone", "open close"]))
+    weights = torch.ones(4)
+
+    def run(dev):
+        model = wav2vec2.init_model(mcfg, seed=1).to(dev)
+        train = step.make_train_step(cfg, model, psycho.build_tables(cfg, dev))
+        args = [t.to(dev) for t in (p, audio, labels, pads, weights)]
+        new_p, _, m = train(args[0], None, *args[1:], ConstraintParams.create(device=dev), cfg.lr)
+        return new_p.cpu(), float(m.ctc_loss)
+
+    _lib.reset_launches()
+    got_p, got_loss = run(cuda)
+    L = mcfg.num_hidden_layers
+    assert _lib.launches == {"attention_fwd": 2 * L, "attention_bwd": 2 * L, "fm_norm": 1}
+    want_p, want_loss = run(torch.device("cpu"))
+    assert abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
+    # PGD takes the gradient's sign: a sign near 0 may flip (2·lr at most)
+    diff = (got_p - want_p).abs()
+    assert float((diff < 1e-2 * cfg.lr).float().mean()) >= 0.99
+    assert float(diff.max()) <= 2 * cfg.lr * 1.01
