@@ -9,9 +9,12 @@ line:
   1. build   — builds the CUDA kernels from ``paa_tpu_torch/csrc`` (nvcc,
                sm_90a) and prints the card's name and power limit.
   2. kernels — each kernel against its plain PyTorch version on the card,
-               at the test shapes and at the main paths' shapes, with times;
-               K1/K2 also at the long-clip lengths T ∈ {774, 999, 1499}
-               with 16 heads, where the JAX package runs its flash kernel.
+               at the test shapes and at the main paths' shapes, with times,
+               the least time the card could take (the bound) and the time
+               of one PyTorch call for the same function where there is one;
+               K2 run twice must give equal bits. K1/K2 also at the
+               long-clip lengths T ∈ {774, 999, 1499} with 16 heads, where
+               the JAX package runs its flash kernel.
   3. tiny    — the committed tiny checkpoint: one fletcher_munson PGD train
                step and one eval step on the card (through the kernels),
                held against the same steps on the CPU (plain versions, f32).
@@ -29,7 +32,10 @@ line:
                writes a finite results.json and launches the kernels as
                often as its steps ask.
 
-Then ``{"kernels": [...]}``, and last ``{"ok": true, "device": {...}}``.
+Then K1/K2's WMMA route (head dim 16) at the anchor's shape, the kernels
+line ``{"kernels": [...]}`` (per kernel: launches in its run, error, ms, the
+plain version's ms, the bound and what sets it, the PyTorch call's ms), and
+last ``{"ok": true, "device": {...}}``.
 It exits non-zero when no CUDA device is present; it never runs on the CPU
 instead. The CLI runs write under ``chiprun_out/chip_smoke/``.
 """
@@ -49,15 +55,13 @@ import time
 import numpy as np
 import torch
 
-from paa_tpu.data import synthetic
-from paa_tpu.models import checkpoint_io
-from paa_tpu.ops import text
 from paa_tpu_torch import runtime
 from paa_tpu_torch.attack import optimizers, step
 from paa_tpu_torch.cli import parser
 from paa_tpu_torch.config import AttackConfig, ConstraintParams
-from paa_tpu_torch.models import wav2vec2
-from paa_tpu_torch.ops import dsp, psycho
+from paa_tpu_torch.data import synthetic
+from paa_tpu_torch.models import checkpoint_io, wav2vec2
+from paa_tpu_torch.ops import dsp, psycho, text
 from paa_tpu_torch.ops.kernels import _lib, attention, fm_norm
 
 SEED = 0
@@ -74,6 +78,17 @@ RUNS_DIR = os.path.join("chiprun_out", "chip_smoke")
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_ABS_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
 FM_TOL = 1e-5  # float32 sum of positive terms in another order
+
+# The H100 SXM's published peaks (dense), for the bounds: bf16 on the tensor
+# cores, float32 outside them, and device memory.
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def counts(**kw) -> dict:
+    """A full launch-count dict: the named counters, every other one 0."""
+    assert set(kw) <= set(_lib.launches), kw
+    return {name: kw.get(name, 0) for name in _lib.launches}
 
 
 def emit(obj: dict) -> None:
@@ -121,6 +136,25 @@ def qkv(B, T, H, d, dtype, dev, seed):
             for _ in range(4)]
 
 
+def bound(ops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the larger of the
+    operations over the peak rate of their type and the bytes over the
+    memory rate."""
+    t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bounds(B, T, H, d, dtype) -> dict:
+    """K1: 4·B·H·T²·d operations, q, k, v read and o, lse written; K2: five
+    T×T×d products, 10·B·H·T²·d, q, k, v, o, do, lse read and dq, dk, dv
+    written."""
+    n, stats = B * T * H * d * torch.finfo(dtype).bits // 8, B * H * T * 4
+    fwd, fwd_by = bound(4 * B * H * T * T * d, 4 * n + stats, dtype)
+    bwd, bwd_by = bound(10 * B * H * T * T * d, 8 * n + stats, dtype)
+    return {"fwd_bound_ms": fwd, "fwd_bound_by": fwd_by, "bwd_bound_ms": bwd,
+            "bwd_bound_by": bwd_by}
+
+
 def check_attention(B, T, H, d, dtype, dev, iters=20) -> dict:
     q, k, v, do = qkv(B, T, H, d, dtype, dev, seed=T * 7 + d)
     o, lse = attention.attention_fwd(q, k, v, H)
@@ -128,6 +162,7 @@ def check_attention(B, T, H, d, dtype, dev, iters=20) -> dict:
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     (attention.attention_fwd_plain(*leaves, H)[0].float() * do.float()).sum().backward()
     grads = attention.attention_bwd(q, k, v, o, lse, do, H)
+    again = attention.attention_bwd(q, k, v, o, lse, do, H)
     torch.cuda.synchronize()
     errs = {"o": rel_err(o, o_ref), "lse_abs": rel_err(lse, lse_ref)[0]}
     for name, got, leaf in zip(("dq", "dk", "dv"), grads, leaves):
@@ -141,20 +176,27 @@ def check_attention(B, T, H, d, dtype, dev, iters=20) -> dict:
     fail = [n for n in ("o", "dq", "dk", "dv") if not errs[n][1] <= tol]
     if not errs["lse_abs"] <= LSE_ABS_TOL[dtype]:
         fail.append("lse")
+    out["bwd_deterministic"] = all(bool(torch.equal(a, b)) for a, b in zip(grads, again))
+    if not out["bwd_deterministic"]:
+        fail.append("bwd_bits")
     out["fwd_ms"] = time_ms(lambda: attention.attention_fwd(q, k, v, H), iters)
     out["fwd_plain_ms"] = time_ms(lambda: attention.attention_fwd_plain(q, k, v, H), iters)
     out["bwd_ms"] = time_ms(lambda: attention.attention_bwd(q, k, v, o, lse, do, H), iters)
     out["bwd_plain_ms"] = time_ms(
         lambda: attention.attention_bwd_plain(q, k, v, o, lse, do, H), iters)
-    # a library kernel for scale only: SDPA is no port of K1/K2
+    # one PyTorch call for the same function, as a yardstick only (the port
+    # never calls it): SDPA's forward, and its backward alone, replayed on
+    # one saved forward
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     to_bhtd = lambda t: t.view(B, T, H, d).transpose(1, 2).detach().requires_grad_(True)
     qs, ks, vs = to_bhtd(q), to_bhtd(k), to_bhtd(v)
     dos = do.view(B, T, H, d).transpose(1, 2)
-
-    def sdpa():
-        torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, scale=1.0).backward(dos)
-
-    out["sdpa_fwd_bwd_ms"] = time_ms(sdpa, iters)
+    with torch.no_grad():
+        out["fwd_library_ms"] = time_ms(lambda: sdpa(qs, ks, vs, scale=1.0), iters)
+    ys = sdpa(qs, ks, vs, scale=1.0)
+    out["bwd_library_ms"] = time_ms(
+        lambda: torch.autograd.grad(ys, (qs, ks, vs), dos, retain_graph=True), iters)
+    out.update(attention_bounds(B, T, H, d, dtype))
     out["failed"] = fail
     emit(out)
     return out
@@ -176,12 +218,19 @@ def check_fm(stft_p: torch.Tensor, tables, label: str, iters=100) -> dict:
     want = fm_norm.fm_weighted_power_sum_plain(stft_p, tables)
     torch.cuda.synchronize()
     abs_err, rel = rel_err(got, want)
+    F, T = stft_p.shape[-2:]
+    cells = stft_p.numel()
+    # per cell: |X|², its SPL, the phon lerp and the weighted sum, about 16
+    # float32 operations; the complex input, the (10, F) table and the (F,)
+    # domain mask read once
+    ms_bound, by = bound(16 * cells, 8 * cells + 11 * F * 4 + 4, torch.float32)
     out = {"phase": "kernels", "kernel": "fm_norm", "case": label,
            "shape": list(stft_p.shape), "value": float(got), "plain_value": float(want),
            "max_abs_err": abs_err, "rel_err": rel, "tol_rel": FM_TOL,
            "ms": time_ms(lambda: fm_norm.fm_weighted_power_sum(stft_p, tables), iters),
            "plain_ms": time_ms(lambda: fm_norm.fm_weighted_power_sum_plain(stft_p, tables),
                                iters)}
+    out.update(bound_ms=ms_bound, bound_by=by, library_ms=None)
     out["failed"] = [] if rel <= FM_TOL else ["sum"]
     emit(out)
     return out
@@ -279,7 +328,8 @@ def phase_tiny(dev) -> None:
     # the gradient, the train step and the eval step each run the layers
     # forward; the first two also backward; the train step projects once
     L = wav2vec2.get_config("wav2vec2-tiny").num_hidden_layers
-    check(launched == {"attention_fwd": 3 * L, "attention_bwd": 2 * L, "fm_norm": 1},
+    # float32, head dim 16: the WMMA route of K1/K2
+    check(launched == counts(attention_fwd=3 * L, attention_bwd=2 * L, fm_norm=1),
           f"tiny: kernel launches on the card {launched}")
 
 
@@ -315,7 +365,8 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
 
     # per train step: every layer forward and backward in each microbatch,
     # one projection; the eval step is one forward pass over the batch
-    per_step = {"attention_fwd": L * accum, "attention_bwd": L * accum, "fm_norm": 1}
+    # (bf16, head dim 64: the wgmma route of K1/K2)
+    per_step = counts(attention_fwd_sm90=L * accum, attention_bwd_sm90=L * accum, fm_norm=1)
     times = lambda n: {k: v * n for k, v in per_step.items()}
     torch.cuda.reset_peak_memory_stats(dev)
     _lib.reset_launches()
@@ -338,7 +389,7 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
     e = evaluate(p, audio, labels, pads, weights)
     eval_loss = float(e.ctc_loss)
     launches = dict(_lib.launches)
-    want = {**times(n), "attention_fwd": times(n)["attention_fwd"] + L}
+    want = {**times(n), "attention_fwd_sm90": times(n)["attention_fwd_sm90"] + L}
     check(launches == want, f"{phase}: eval step launched {launches}, want {want}")
     peak = torch.cuda.max_memory_allocated(dev)
     p_abs = float(p.abs().max())
@@ -413,30 +464,31 @@ def run_cli(name: str, argv: list[str]) -> tuple[dict, dict, dict]:
     return results, facts, launches
 
 
-def expected_cli_launches(argv: list[str], facts: dict, fm: bool) -> dict:
+def expected_cli_launches(argv: list[str], facts: dict, fm: bool, route: str) -> dict:
     """What one CLI run launches: each train step runs every layer forward
     and backward per microbatch and projects once; the clean eval runs once,
     the perturbed eval once per epoch, the test split clean and perturbed;
-    the initial perturbation is projected once."""
+    the initial perturbation is projected once. ``route`` is the suffix of
+    the attention counters ("" for WMMA, "_sm90" for wgmma)."""
     args = parser.parse_args(argv)
     A = args.accum_steps
     L = wav2vec2.get_config(args.model).num_hidden_layers
     nb = lambda n: math.ceil(n / args.batch_size)
     steps = facts["epochs"] * nb(facts["train"])
     evals = nb(facts["eval"]) * (1 + facts["epochs"]) + 2 * nb(facts["test"])
-    return {"attention_fwd": L * (A * steps + evals), "attention_bwd": L * A * steps,
-            "fm_norm": (steps + 1) if fm else 0}
+    return counts(**{f"attention_fwd{route}": L * (A * steps + evals),
+                     f"attention_bwd{route}": L * A * steps, "fm_norm": (steps + 1) if fm else 0})
 
 
 def phase_cli(card: str) -> dict:
-    """Returns the lv60 run's launch counts."""
+    """Returns each run's launch counts, and the anchor's attention frames."""
     scores = lambda r, key: [r[key]["ctc"], r[key]["wer"]]
     # (a) the ROADMAP anchor: the tiny checkpoint's clean test eval
     res, facts, launches = run_cli("anchor", ANCHOR_ARGV)
     clean = res["final_test_clean"]
     ctc_rel = abs(clean["ctc"] - ANCHOR["ctc"]) / ANCHOR["ctc"]
     wer_abs = abs(clean["wer"] - ANCHOR["wer"])
-    want = expected_cli_launches(ANCHOR_ARGV, facts, fm=False)
+    want = expected_cli_launches(ANCHOR_ARGV, facts, fm=False, route="")  # head dim 16
     emit({"phase": "cli", "run": "anchor", **facts, "final_test_clean": clean,
           "reference": ANCHOR, "ctc_rel_err": ctc_rel, "wer_abs_err": wer_abs,
           "tolerance": ANCHOR_TOL, "launches": launches, "want_launches": want, "card": card})
@@ -444,10 +496,12 @@ def phase_cli(card: str) -> dict:
     check(ctc_rel <= ANCHOR_TOL["ctc_rel"], f"cli anchor: clean CTC {clean['ctc']}")
     check(wer_abs <= ANCHOR_TOL["wer_abs"], f"cli anchor: clean WER {clean['wer']}")
     check(launches == want, f"cli anchor: launched {launches}, want {want}")
+    out = {"anchor": launches, "anchor_frames":
+           wav2vec2.get_config("wav2vec2-tiny").feat_extract_output_length(facts["audio_len"])}
 
     # (b) lv60 on ~20 s clips, random weights
     res, facts, launches = run_cli("lv60", LV60_CLI_ARGV)
-    want = expected_cli_launches(LV60_CLI_ARGV, facts, fm=True)
+    want = expected_cli_launches(LV60_CLI_ARGV, facts, fm=True, route="_sm90")
     values = (scores(res, "eval_score_clean") + scores(res, "eval_score_perturbed")
               + scores(res, "final_test_perturbed"))
     emit({"phase": "cli", "run": "lv60", **facts, "clip_s": facts["audio_len"] / 16000,
@@ -458,27 +512,50 @@ def phase_cli(card: str) -> dict:
     check(facts["audio_len"] / 16000 > 15.5, f"cli lv60: clips of {facts['audio_len']} samples")
     check(all(math.isfinite(v) for v in values), f"cli lv60: non-finite scores {values}")
     check(launches == want, f"cli lv60: launched {launches}, want {want}")
-    return launches
+    return {**out, "cli_lv60": launches}
 
 
-# (row name, launch counter, source, TPU kernel it replaces, phase whose
-# launches it reports). The JAX package's flash kernel (K4) runs where its
-# fused kernel's score tile no longer fits VMEM, T ≥ 774; on the card K1
-# and K2 cover those lengths, so K4's rows are theirs, counted in lv60.
+# (row name, launch counter, source, TPU kernel it replaces, run whose
+# launches it reports, phase-2 check and direction it takes its numbers
+# from). The JAX package's flash kernel (K4) runs where its fused kernel's
+# score tile no longer fits VMEM, T ≥ 774; on the card K1 and K2 cover those
+# lengths, so K4's rows are theirs, counted in lv60. The WMMA routes of K1
+# and K2 (float32, and bf16 with head dim 16) are counted in the CLI's tiny
+# anchor, which runs bf16 with head dim 16.
+K1_TPU = "paa_tpu/ops/pallas/attention.py:107 (_fwd_kernel, via _attend_fwd :196)"
+K2_TPU = "paa_tpu/ops/pallas/attention.py:133 (_bwd_kernel, via _attend_bwd :218)"
+K4_TPU = "paa_tpu/models/wav2vec2.py:766 (_flash_attention, stock Pallas flash_attention, {})"
 KERNELS = (
-    ("attention_fwd", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu",
-     "paa_tpu/ops/pallas/attention.py:107 (_fwd_kernel, via _attend_fwd :196)", "main"),
-    ("attention_bwd", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu",
-     "paa_tpu/ops/pallas/attention.py:133 (_bwd_kernel, via _attend_bwd :218)", "main"),
+    ("attention_fwd", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu", K1_TPU,
+     "main", "attention", "fwd"),
+    ("attention_bwd", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu", K2_TPU,
+     "main", "attention", "bwd"),
     ("fm_norm", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu",
-     "paa_tpu/ops/pallas/fm_norm.py:40 (_kernel, via fm_weighted_power_sum :61)", "main"),
-    ("flash_attention_fwd", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu",
-     "paa_tpu/models/wav2vec2.py:766 (_flash_attention, stock Pallas flash_attention, "
-     "forward)", "lv60"),
-    ("flash_attention_bwd", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu",
-     "paa_tpu/models/wav2vec2.py:766 (_flash_attention, stock Pallas flash_attention, "
-     "backward)", "lv60"),
+     "paa_tpu/ops/pallas/fm_norm.py:40 (_kernel, via fm_weighted_power_sum :61)", "main",
+     "fm_norm", None),
+    ("flash_attention_fwd", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
+     K4_TPU.format("forward"), "lv60", "attention_long", "fwd"),
+    ("flash_attention_bwd", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
+     K4_TPU.format("backward"), "lv60", "attention_long", "bwd"),
+    ("attention_fwd_wmma", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
+     "anchor", "attention_tiny", "fwd"),
+    ("attention_bwd_wmma", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
+     "anchor", "attention_tiny", "bwd"),
 )
+
+
+def kernel_row(check_out: dict, direction: str | None) -> dict:
+    """The numbers of one kernel row from its phase-2 check."""
+    if direction is None:  # K3
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return {k: check_out[k] for k in keys}
+    err = (check_out["o_max_abs_err"] if direction == "fwd" else
+           max(check_out[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")))
+    return {"max_abs_err": err, "ms": check_out[f"{direction}_ms"],
+            "plain_ms": check_out[f"{direction}_plain_ms"],
+            "bound_ms": check_out[f"{direction}_bound_ms"],
+            "bound_by": check_out[f"{direction}_bound_by"],
+            "library_ms": check_out[f"{direction}_library_ms"]}
 
 
 def main() -> int:
@@ -502,25 +579,18 @@ def main() -> int:
     launches["lv60"] = phase_full_width(dev, "lv60", "wav2vec2-large-lv60", LV60_B, LV60_T,
                                         LV60_ACCUM, 2, smi)
     torch.cuda.empty_cache()
-    phase_cli(smi)
+    launches.update(phase_cli(smi))
+    # the WMMA route at the anchor's shape: its 32 clips, 4 heads of 16
+    at_main["attention_tiny"] = check_attention(32, launches.pop("anchor_frames"), 4, 16,
+                                                torch.bfloat16, dev)
+    check(not at_main["attention_tiny"]["failed"], "kernels: the anchor's shape")
 
-    def attn_numbers(att):
-        bwd_err = max(att["dq_max_abs_err"], att["dk_max_abs_err"], att["dv_max_abs_err"])
-        return ((att["o_max_abs_err"], att["fwd_ms"], att["fwd_plain_ms"]),
-                (bwd_err, att["bwd_ms"], att["bwd_plain_ms"]))
-
-    fm = at_main["fm_norm"]
-    numbers = dict(zip(("attention_fwd", "attention_bwd"), attn_numbers(at_main["attention"])))
-    numbers.update(zip(("flash_attention_fwd", "flash_attention_bwd"),
-                       attn_numbers(at_main["attention_long"])))
-    numbers["fm_norm"] = (fm["max_abs_err"], fm["ms"], fm["plain_ms"])
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[phase][counter], "max_abs_err": numbers[name][0],
-         "ms": numbers[name][1], "plain_ms": numbers[name][2]}
-        for name, counter, src, rep, phase in KERNELS]})
-    check(not any(m.split(".")[0] in ("jax", "flax", "optax") for m in sys.modules),
-          "JAX was imported")
+         "launches": launches[run][counter], **kernel_row(at_main[chk], direction)}
+        for name, counter, src, rep, run, chk, direction in KERNELS]})
+    check(not any(m.split(".")[0] in ("jax", "flax", "optax", "paa_tpu") for m in sys.modules),
+          "JAX or the JAX package was imported")
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

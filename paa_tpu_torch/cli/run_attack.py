@@ -17,8 +17,8 @@ import sys
 
 import torch
 
-from paa_tpu.data import datasets
-from paa_tpu.train import artifacts, log_helpers
+from paa_tpu_torch.data import datasets
+from paa_tpu_torch.train import artifacts, log_helpers
 from paa_tpu_torch import runtime
 from paa_tpu_torch.cli import parser as parser_lib
 from paa_tpu_torch.config import SWEEP_ARG
@@ -66,7 +66,7 @@ def load_model(args, device: torch.device) -> wav2vec2.Wav2Vec2ForCTC:
     mcfg = wav2vec2.get_config(args.model, compute_dtype=args.compute_dtype,
                                fe_gelu=args.fe_gelu, **overrides)
     if args.checkpoint_path:
-        from paa_tpu.models import checkpoint_io
+        from paa_tpu_torch.models import checkpoint_io
 
         sd = checkpoint_io.load_state_dict(args.checkpoint_path)
         model = wav2vec2.Wav2Vec2ForCTC(mcfg)

@@ -1,4 +1,6 @@
-// K2 — attention backward on Hopper.
+// K2 — attention backward on Hopper, the WMMA route: float32 (head dim 16
+// or 64) and bfloat16 with head dim 16. bfloat16 with head dim 64, the base
+// and lv60 paths, runs in attention_bwd_sm90.cu.
 //
 // Replaces paa_tpu/ops/pallas/attention.py:_bwd_kernel (launched by
 // _attend_bwd), and the backward of the stock Pallas flash_attention
@@ -245,8 +247,10 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 }  // namespace
 }  // namespace paa
 
-// q, k, v, o, do, dq, dk, dv: (B, T, H·D) contiguous, float32 or bfloat16;
-// lse: (B, H, T) float32 from the forward; delta: (B, H, T) float32 scratch.
+// q, k, v, o, do, dq, dk, dv: (B, T, H·D) contiguous, float32 with D 16 or
+// 64, or bfloat16 with D 16 (bfloat16 with D = 64 runs in
+// attention_bwd_sm90.cu); lse: (B, H, T) float32 from the forward; delta:
+// (B, H, T) float32 scratch.
 extern "C" int paa_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                  const void* lse, const void* dout, void* dq, void* dk, void* dv,
                                  void* delta, int B, int T_len, int H, int D, int is_bf16,
@@ -254,7 +258,6 @@ extern "C" int paa_attention_bwd(const void* q, const void* k, const void* v, co
   using namespace paa;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (D == 64) return launch_bwd<bf16, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, T_len, H, s);
     if (D == 16) return launch_bwd<bf16, 16>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, T_len, H, s);
   } else {
     if (D == 64) return launch_bwd<float, 64>(q, k, v, o, lse, dout, dq, dk, dv, delta, B, T_len, H, s);

@@ -1,4 +1,6 @@
-// K1 — attention forward on Hopper.
+// K1 — attention forward on Hopper, the WMMA route: float32 (head dim 16 or
+// 64) and bfloat16 with head dim 16. bfloat16 with head dim 64, the base and
+// lv60 paths, runs in attention_fwd_sm90.cu.
 //
 // Replaces paa_tpu/ops/pallas/attention.py:_fwd_kernel (launched by
 // _attend_fwd), and the forward of the stock Pallas flash_attention that
@@ -10,11 +12,12 @@
 // -1e30, softmax in f32, o = p·v; it also stores the row logsumexp
 // lse = m + log l, the one residual the backward needs.
 //
-// What bounds it on the H100: at the main-path shape (B=64, T=499, H=12,
-// d=64, bf16) one layer's forward is 4·B·H·T²·d ≈ 49 GFLOP against
-// ≈ 0.2 GB of q/k/v/o traffic, so it is compute-bound, and the score tile
-// cannot be kept whole: the TPU kernel holds a 512×512 f32 tile per head
-// in VMEM, an SM has 227 KB of shared memory.
+// What bounds it on the H100: 4·B·H·T²·d operations, on the tensor cores
+// in bf16 and on the FMA units (67 TFLOP/s) in float32; at the tiny
+// preset's calls (B=32, T ≈ 150, H=4, d=16) the work is so small that
+// latency, not either rate, sets the time. The score tile cannot be kept
+// whole: the TPU kernel holds a 512×512 f32 tile per head in VMEM, an SM
+// has 227 KB of shared memory.
 //
 // Design: grid (⌈T/64⌉, H, B); a block of 4 warps owns 64 query rows of one
 // head, read straight from the strided (B, T, H·d) layout (row stride H·d,
@@ -143,14 +146,14 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
 }  // namespace
 }  // namespace paa
 
-// q, k, v, o: (B, T, H·D) contiguous, float32 (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1); lse: (B, H, T) float32. D is 16 or 64.
+// q, k, v, o: (B, T, H·D) contiguous, float32 (is_bf16 = 0) with D 16 or
+// 64, or bfloat16 (is_bf16 = 1) with D 16; lse: (B, H, T) float32.
+// bfloat16 with D = 64 runs in attention_fwd_sm90.cu.
 extern "C" int paa_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                  int B, int T_len, int H, int D, int is_bf16, void* stream) {
   using namespace paa;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    if (D == 64) return launch_fwd<bf16, 64>(q, k, v, o, lse, B, T_len, H, s);
     if (D == 16) return launch_fwd<bf16, 16>(q, k, v, o, lse, B, T_len, H, s);
   } else {
     if (D == 64) return launch_fwd<float, 64>(q, k, v, o, lse, B, T_len, H, s);

@@ -29,7 +29,7 @@ from typing import Iterator, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from paa_tpu.ops import text as text_ops
+from paa_tpu_torch.ops import text as text_ops
 
 
 class Batch(NamedTuple):

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from paa_tpu.ops.text import PAD_ID
+from paa_tpu_torch.ops.text import PAD_ID
 
 _LOG_EPSILON = -1e5  # optax.ctc_loss's default stand-in for log(0)
 

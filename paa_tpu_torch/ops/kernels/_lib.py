@@ -22,14 +22,18 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paa_tpu_torch"
-SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "fm_norm.cu")
-HEADERS = ("attention_common.cuh",)
+SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "attention_fwd_sm90.cu",
+           "attention_bwd_sm90.cu", "fm_norm.cu")
+HEADERS = ("attention_common.cuh", "attention_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launches = {"attention_fwd": 0, "attention_bwd": 0, "fm_norm": 0}
+# attention_fwd/_bwd: the WMMA kernels (float32, and bf16 with head dim 16);
+# attention_fwd_sm90/_bwd_sm90: the wgmma + TMA kernels (bf16, head dim 64)
+launches = {"attention_fwd": 0, "attention_bwd": 0, "attention_fwd_sm90": 0,
+            "attention_bwd_sm90": 0, "fm_norm": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -37,6 +41,12 @@ _SIGNATURES = {
     "paa_attention_fwd": (_P,) * 5 + (_I,) * 5 + (_P,),
     # q, k, v, o, lse, do, dq, dk, dv, delta, B, T, H, D, is_bf16, stream
     "paa_attention_bwd": (_P,) * 10 + (_I,) * 5 + (_P,),
+    # q, k, v, o, lse, B, T, H, stream
+    "paa_attention_fwd_sm90": (_P,) * 5 + (_I,) * 3 + (_P,),
+    # q, k, v, o, lse, do, dq, dk, dv, scratch, B, T, H, stream
+    "paa_attention_bwd_sm90": (_P,) * 10 + (_I,) * 3 + (_P,),
+    # T
+    "paa_attention_bwd_sm90_rows": (_I,),
     # stft (as real pairs), table, in_domain, partials, out, B, F, T, stream
     "paa_fm_power_sum": (_P,) * 5 + (_I,) * 3 + (_P,),
     # B, F, T

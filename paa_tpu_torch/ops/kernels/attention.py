@@ -3,11 +3,17 @@
 Port of ``paa_tpu/ops/pallas/attention.py``: ``softmax(q·kᵀ)·v`` with q
 pre-scaled, read in the model's ``(B, T, H·d)`` layout. The forward stores
 the output and the per-(head, row) logsumexp; the backward recomputes the
-probabilities from them. The CUDA sources are ``csrc/attention_fwd.cu`` and
-``csrc/attention_bwd.cu``.
+probabilities from them.
 
-Each wrapper runs the kernel on a CUDA tensor and the plain PyTorch version
-on a CPU tensor; on a CUDA tensor it launches the kernel or raises.
+Each wrapper runs a kernel on a CUDA tensor and the plain PyTorch version
+on a CPU tensor; on a CUDA tensor it launches a kernel or raises. Which
+kernel is fixed by dtype and head dim, the same function either way:
+
+- bfloat16 with head dim 64 (base, lv60): the Hopper kernels, wgmma with
+  register accumulators fed by TMA through an mbarrier ring
+  (``csrc/attention_fwd_sm90.cu``, ``csrc/attention_bwd_sm90.cu``);
+- float32, and head dim 16 (the tiny preset): the WMMA kernels
+  (``csrc/attention_fwd.cu``, ``csrc/attention_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -81,6 +87,11 @@ def _check(name: str, H: int, *ts: torch.Tensor) -> tuple[int, int, int, int]:
     return B, T, H, d
 
 
+def _sm90(x: torch.Tensor, d: int) -> bool:
+    """The Hopper route: bfloat16 with head dim 64."""
+    return x.dtype == torch.bfloat16 and d == 64
+
+
 def attention_fwd(q, k, v, H: int):
     """K1: ``(o, lse)`` for ``(B, T, H·d)`` inputs (plain version on CPU)."""
     if not q.is_cuda:
@@ -89,14 +100,17 @@ def attention_fwd(q, k, v, H: int):
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     lib = _lib.library()
+    sm90 = _sm90(q, d)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = lib.paa_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            B, T, H, d, int(q.dtype == torch.bfloat16), stream,
-        )
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
+        if sm90:
+            status = lib.paa_attention_fwd_sm90(*ptrs, B, T, H, stream)
+        else:
+            status = lib.paa_attention_fwd(*ptrs, B, T, H, d, int(q.dtype == torch.bfloat16),
+                                           stream)
     _lib.check(status, "attention_fwd")
-    _lib.launches["attention_fwd"] += 1
+    _lib.launches["attention_fwd_sm90" if sm90 else "attention_fwd"] += 1
     return o, lse
 
 
@@ -108,17 +122,24 @@ def attention_bwd(q, k, v, o, lse, do, H: int):
     if lse.shape != (B, H, T) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("attention_bwd: lse must be contiguous float32 (B, H, T)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    sm90 = _sm90(q, d)
     lib = _lib.library()
+    # scratch: D = rowsum(do∘o), and for the Hopper route also lse·log2 e,
+    # over rows padded as that kernel asks
+    rows = lib.paa_attention_bwd_sm90_rows(T) if sm90 else T
+    scratch = torch.empty(((2 if sm90 else 1), B, H, rows), dtype=torch.float32,
+                          device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = lib.paa_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-            B, T, H, d, int(q.dtype == torch.bfloat16), stream,
-        )
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr())
+        if sm90:
+            status = lib.paa_attention_bwd_sm90(*ptrs, B, T, H, stream)
+        else:
+            status = lib.paa_attention_bwd(*ptrs, B, T, H, d, int(q.dtype == torch.bfloat16),
+                                           stream)
     _lib.check(status, "attention_bwd")
-    _lib.launches["attention_bwd"] += 1
+    _lib.launches["attention_bwd_sm90" if sm90 else "attention_bwd"] += 1
     return dq, dk, dv
 
 

@@ -1,7 +1,7 @@
 """Psychoacoustic tables and the Fletcher-Munson weighting, in torch.
 
 Port of ``paa_tpu/ops/psycho.py``. The tables are built once from the
-numpy ``paa_tpu.ops.iso226`` grids at the run's STFT bin frequencies; the
+numpy ``ops.iso226`` grids at the run's STFT bin frequencies; the
 per-cell weight is a lerp along the phon axis. ``fm_weighted_norm`` here is
 the reference semantics that kernel K3 (``ops/kernels/fm_norm.py``) is held
 against.
@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from paa_tpu.ops import iso226
+from paa_tpu_torch.ops import iso226
 from paa_tpu_torch.config import AttackConfig
 from paa_tpu_torch.ops import dsp
 

@@ -16,10 +16,10 @@ step:
     checkpointed (train/checkpoint.py), and the shuffle order is a pure
     function of (seed, epoch).
 
-The JAX-free helpers of ``paa_tpu.train`` (scoring, log_helpers, tb_events
-and the WAV, loss-plot, inspection and results.json writers of artifacts)
-are used as they are. The STFT spectrograms and the projection debug plots
-of ``artifacts`` compute with jnp and are not ported yet (ROADMAP.md).
+The helpers of ``train`` (scoring, log_helpers, tb_events and the WAV,
+loss-plot, inspection and results.json writers of artifacts) are the port's
+own copies of the JAX package's. The STFT spectrograms and the projection
+debug plots are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ import time
 import numpy as np
 import torch
 
-from paa_tpu.ops import text as text_ops, wer as wer_ops
-from paa_tpu.train import artifacts, log_helpers, scoring
+from paa_tpu_torch.ops import text as text_ops, wer as wer_ops
+from paa_tpu_torch.train import artifacts, log_helpers, scoring
 from paa_tpu_torch.attack import optimizers, step as attack_step
 from paa_tpu_torch.config import AttackConfig, ConstraintParams, attack_size_value
 from paa_tpu_torch.data import pipeline as pipeline_lib
@@ -303,7 +303,7 @@ def run_attack(
     _truncate_metrics(metrics_path, start_epoch)
     tb_writer = None
     if tensorboard:
-        from paa_tpu.train import tb_events
+        from paa_tpu_torch.train import tb_events
 
         tb_writer = tb_events.EventWriter(os.path.join(save_dir, "tb"))
 

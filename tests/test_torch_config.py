@@ -77,6 +77,8 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax'))\n"
         "assert not bad, bad\n"
+        "ref = sorted(m for m in sys.modules if m == 'paa_tpu' or m.startswith('paa_tpu.'))\n"
+        "assert not ref, ref\n"
         "need = {'paa_tpu_torch.cli.run_attack', 'paa_tpu_torch.cli.parser',\n"
         "        'paa_tpu_torch.train.loop', 'paa_tpu_torch.train.checkpoint',\n"
         "        'paa_tpu_torch.data.pipeline'}\n"

@@ -1,7 +1,9 @@
 """The CUDA kernels K1, K2 and K3 against their plain PyTorch versions on a
-GPU (K1/K2 also at the long-clip lengths where the JAX package runs its
-flash kernel, K4), and the step's launch counts. Every test needs a CUDA device and skips
-without one (the kernels have no CPU mode).
+GPU (K1/K2 on both routes, wgmma for bf16 with head dim 64 and WMMA
+otherwise, also at the long-clip lengths where the JAX package runs its
+flash kernel, K4), K2's determinism, and the step's launch counts. Every
+test needs a CUDA device and skips without one (the kernels have no CPU
+mode).
 
 The file imports no JAX, so it also runs on a machine that has none:
 
@@ -52,6 +54,30 @@ def test_attention_kernels_match_plain(cuda, dtype, T, heads, d):
     for a, b in zip(got, want):
         assert a.dtype == dtype
         assert _rel(a, b) <= TOL[dtype]
+    # deterministic: the same inputs give the same bits
+    again = attention.attention_bwd(q, k, v, o, lse, do, heads)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B, T, heads", [(64, 499, 12), (32, 999, 16)])
+def test_attention_wgmma_route_at_the_main_shapes(cuda, B, T, heads):
+    """bf16, head dim 64 at base's and the lv60 microbatch's shapes: the
+    wgmma kernels launch, match the plain versions and repeat bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(T)
+    q, k, v, do = ((torch.randn((B, T, heads * 64), generator=g, device=cuda) * 0.5)
+                   .to(torch.bfloat16) for _ in range(4))
+    _lib.reset_launches()
+    o, lse = attention.attention_fwd(q, k, v, heads)
+    got = attention.attention_bwd(q, k, v, o, lse, do, heads)
+    again = attention.attention_bwd(q, k, v, o, lse, do, heads)
+    assert _lib.launches["attention_fwd_sm90"] == 1 and _lib.launches["attention_bwd_sm90"] == 2
+    o_ref, lse_ref = attention.attention_fwd_plain(q, k, v, heads)
+    assert _rel(o, o_ref) <= TOL[torch.bfloat16]
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+    want = attention.attention_bwd_plain(q, k, v, o, lse, do, heads)
+    for a, b, c in zip(got, want, again):
+        assert _rel(a, b) <= TOL[torch.bfloat16]
+        assert torch.equal(a, c)
 
 
 def test_attention_function_runs_both_kernels(cuda):
@@ -100,7 +126,7 @@ def test_lv60_flags_accumulated_step_on_the_card(cuda):
     """The lv60 flags on tiny widths, float32, A=2: the card's train step
     launches K1/K2 once per layer in each microbatch and K3 once, and its
     loss and new p match the CPU's plain path."""
-    from paa_tpu.ops import text
+    from paa_tpu_torch.ops import text
     from paa_tpu_torch.attack import step
     from paa_tpu_torch.models import wav2vec2
 
@@ -124,7 +150,8 @@ def test_lv60_flags_accumulated_step_on_the_card(cuda):
     _lib.reset_launches()
     got_p, got_loss = run(cuda)
     L = mcfg.num_hidden_layers
-    assert _lib.launches == {"attention_fwd": 2 * L, "attention_bwd": 2 * L, "fm_norm": 1}
+    assert _lib.launches == {"attention_fwd": 2 * L, "attention_bwd": 2 * L,
+                             "attention_fwd_sm90": 0, "attention_bwd_sm90": 0, "fm_norm": 1}
     want_p, want_loss = run(torch.device("cpu"))
     assert abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
     # PGD takes the gradient's sign: a sign near 0 may flip (2·lr at most)
