@@ -14,7 +14,11 @@ line:
                of one PyTorch call for the same function where there is one;
                K2 run twice must give equal bits. K1/K2 also at the
                long-clip lengths T ∈ {774, 999, 1499} with 16 heads, where
-               the JAX package runs its flash kernel.
+               the JAX package runs its flash kernel. K3 at base's and
+               lv60's p, in torch.stft's layout and contiguous, must launch
+               one kernel and run one device operation a call (profiler),
+               repeat its bits over 10 calls, and reports its device time
+               (``device_ms``, a CUDA graph of 100 calls) beside ``ms``.
   3. tiny    — the committed tiny checkpoint: one fletcher_munson PGD train
                step and one eval step on the card (through the kernels),
                held against the same steps on the CPU (plain versions, f32).
@@ -42,6 +46,7 @@ instead. The CLI runs write under ``chiprun_out/chip_smoke/``.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
@@ -70,6 +75,7 @@ LV60_B, LV60_T, LV60_ACCUM = 64, 320_000, 2  # 20 s clips, T = 999 frames
 LONG_T = (774, 999, 1499)  # 15.5 s (the JAX flash switch), 20 s, 30 s
 TINY_CKPT = "checkpoints/wav2vec2-tiny-synthetic.safetensors"
 RUNS_DIR = os.path.join("chiprun_out", "chip_smoke")
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Tolerances, as max |kernel − plain| / max(max |plain|, 0.1) unless said
 # otherwise.
@@ -89,6 +95,18 @@ def counts(**kw) -> dict:
     """A full launch-count dict: the named counters, every other one 0."""
     assert set(kw) <= set(_lib.launches), kw
     return {name: kw.get(name, 0) for name in _lib.launches}
+
+
+def load_tool(name: str):
+    """A script of ``tools/`` as a module, loaded from its path."""
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tools", name + ".py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# K3's device timer (a CUDA graph of 100 calls) and its profiler count
+fm_profile = load_tool("fm_norm_profile")
 
 
 def emit(obj: dict) -> None:
@@ -214,24 +232,36 @@ def fm_edge_stft(dev) -> torch.Tensor:
 
 
 def check_fm(stft_p: torch.Tensor, tables, label: str, iters=100) -> dict:
-    got = fm_norm.fm_weighted_power_sum(stft_p, tables)
+    """K3 against its plain version; its launches and device operations in
+    one call, its bits over 10 calls, its time per call as the caller sees
+    it (``ms``) and on the device alone (``device_ms``)."""
+    call = lambda: fm_norm.fm_weighted_power_sum(stft_p, tables)
+    _lib.reset_launches()
+    got = call()
+    launches = _lib.launches["fm_norm"]
     want = fm_norm.fm_weighted_power_sum_plain(stft_p, tables)
     torch.cuda.synchronize()
     abs_err, rel = rel_err(got, want)
-    F, T = stft_p.shape[-2:]
+    bits_repeat = all(torch.equal(call(), got) for _ in range(10))
+    ops = [name for name, _us in fm_profile.device_ops(call)]
+    F = stft_p.shape[-2]
     cells = stft_p.numel()
     # per cell: |X|², its SPL, the phon lerp and the weighted sum, about 16
     # float32 operations; the complex input, the (10, F) table and the (F,)
     # domain mask read once
     ms_bound, by = bound(16 * cells, 8 * cells + 11 * F * 4 + 4, torch.float32)
     out = {"phase": "kernels", "kernel": "fm_norm", "case": label,
-           "shape": list(stft_p.shape), "value": float(got), "plain_value": float(want),
-           "max_abs_err": abs_err, "rel_err": rel, "tol_rel": FM_TOL,
-           "ms": time_ms(lambda: fm_norm.fm_weighted_power_sum(stft_p, tables), iters),
+           "shape": list(stft_p.shape), "strides": list(stft_p.stride()),
+           "value": float(got), "plain_value": float(want), "max_abs_err": abs_err,
+           "rel_err": rel, "tol_rel": FM_TOL, "launches_per_call": launches,
+           "device_ops_per_call": ops, "bits_repeat": bits_repeat,
+           "ms": time_ms(call, iters), "device_ms": fm_profile.graph_ms(call),
            "plain_ms": time_ms(lambda: fm_norm.fm_weighted_power_sum_plain(stft_p, tables),
                                iters)}
     out.update(bound_ms=ms_bound, bound_by=by, library_ms=None)
-    out["failed"] = [] if rel <= FM_TOL else ["sum"]
+    out["failed"] = [name for name, ok in (("sum", rel <= FM_TOL), ("launches", launches == 1),
+                                           ("device_ops", len(ops) == 1),
+                                           ("bits", bits_repeat)) if not ok]
     emit(out)
     return out
 
@@ -255,13 +285,25 @@ def phase_kernels(dev) -> dict:
     cfg = AttackConfig(norm_type="fletcher_munson")
     tables = psycho.build_tables(cfg, dev)
     g = torch.Generator(device=dev).manual_seed(SEED)
-    p_main = torch.randn((1, MAIN_T), generator=g, device=dev) * 0.01
-    spec_main = dsp.stft(p_main, cfg.n_fft, cfg.hop_length, cfg.win_length)  # (1, 513, 626)
+    stft = lambda n: dsp.stft(torch.randn((1, n), generator=g, device=dev) * 0.01, cfg.n_fft,
+                              cfg.hop_length, cfg.win_length)
+    # p's STFT on the main path, (1, 513, 626), and lv60's, (1, 513, 1251), in
+    # torch.stft's layout (bins innermost in memory), then made contiguous
+    spec_main, spec_lv60 = stft(MAIN_T), stft(LV60_T)
     at_main["fm_norm"] = check_fm(spec_main, tables, "main_path")
+    at_main["fm_norm_lv60"] = check_fm(spec_lv60, tables, "lv60")
+    results.append(check_fm(spec_main.contiguous(), tables, "main_path_contiguous"))
+    results.append(check_fm(spec_lv60.contiguous(), tables, "lv60_contiguous"))
     spec_b2 = torch.complex(torch.randn((2, 513, 130), generator=g, device=dev) * 10,
                             torch.randn((2, 513, 130), generator=g, device=dev) * 10)
     results.append(check_fm(spec_b2, tables, "B2_T130"))
-    results.append(check_fm(fm_edge_stft(dev), tables, "edges_power0_spl0_spl90"))
+    results.append(check_fm(spec_b2.transpose(1, 2).contiguous().transpose(1, 2), tables,
+                            "B2_T130_frames_major"))
+    edges = fm_edge_stft(dev)
+    results.append(check_fm(edges, tables, "edges_power0_spl0_spl90"))
+    results.append(check_fm(edges.transpose(1, 2).contiguous().transpose(1, 2), tables,
+                            "edges_frames_major"))
+    results.append(check_fm(spec_main[..., ::2], tables, "every_other_frame_strided"))
     bad = [r for r in results + list(at_main.values()) if r["failed"]]
     check(not bad, f"kernels out of tolerance: {bad}")
     return at_main
@@ -547,7 +589,8 @@ KERNELS = (
 def kernel_row(check_out: dict, direction: str | None) -> dict:
     """The numbers of one kernel row from its phase-2 check."""
     if direction is None:  # K3
-        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
         return {k: check_out[k] for k in keys}
     err = (check_out["o_max_abs_err"] if direction == "fwd" else
            max(check_out[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")))

@@ -23,7 +23,7 @@ from paa_tpu_torch import runtime
 from paa_tpu_torch.cli import parser as parser_lib
 from paa_tpu_torch.config import SWEEP_ARG
 from paa_tpu_torch.data import pipeline as pipeline_lib
-from paa_tpu_torch.models import wav2vec2
+from paa_tpu_torch.models import checkpoint_io, hf_cache, wav2vec2
 from paa_tpu_torch.train import checkpoint, loop
 
 
@@ -56,26 +56,42 @@ def select_device(platform: str) -> torch.device:
 
 
 def load_model(args, device: torch.device) -> wav2vec2.Wav2Vec2ForCTC:
-    """The frozen Wav2Vec2-CTC on ``device``: weights from
-    ``--checkpoint_path`` (a local HF ``model.safetensors`` or
-    ``pytorch_model.bin``, read without torch's unpickler), or else drawn
-    from ``--seed``. The HF cache loader of the JAX package is not ported:
-    the port has no ``transformers``."""
+    """The frozen Wav2Vec2-CTC on ``device``. Weight sources, in the
+    reference's order (``paa_tpu/cli/run_attack.py`` ``load_model_bundle``):
+
+      1. ``--checkpoint_path``: a local HF ``model.safetensors`` or
+         ``pytorch_model.bin``, read without torch's unpickler; errors are
+         fatal;
+      2. the preset's pretrained weights in the local HF hub cache
+         (``models/hf_cache.py``), never for ``wav2vec2-tiny``, which is
+         test-only; any failure to find or read them logs a warning;
+      3. random weights drawn from ``--seed``.
+
+    The reference's last resort, ``transformers.from_pretrained``, has no
+    counterpart: the port has no ``transformers``."""
     log = logging.getLogger("paa_tpu")
     overrides = {"do_normalize": False} if args.no_input_normalize else {}
     mcfg = wav2vec2.get_config(args.model, compute_dtype=args.compute_dtype,
                                fe_gelu=args.fe_gelu, **overrides)
-    if args.checkpoint_path:
-        from paa_tpu_torch.models import checkpoint_io
 
-        sd = checkpoint_io.load_state_dict(args.checkpoint_path)
+    def from_state_dict(sd: dict) -> wav2vec2.Wav2Vec2ForCTC:
         model = wav2vec2.Wav2Vec2ForCTC(mcfg)
         model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
-        model.requires_grad_(False).eval()
+        return model.requires_grad_(False).eval()
+
+    model = None
+    if args.checkpoint_path:
+        model = from_state_dict(checkpoint_io.load_state_dict(args.checkpoint_path))
         log.info("loaded weights from %s", args.checkpoint_path)
-    else:
-        log.warning("no --checkpoint_path: %s weights drawn at random from --seed %d",
-                    args.model, args.seed)
+    elif args.model != "wav2vec2-tiny":  # tiny is test-only, never pretrained
+        try:
+            path, sd = hf_cache.load_cached_state_dict(args.model)
+            model = from_state_dict(sd)
+            log.info("loaded pretrained HF weights for %s from %s", args.model, path)
+        except Exception as e:
+            log.warning("pretrained weights unavailable (%s); using random init", e)
+    if model is None:
+        log.info("%s weights drawn at random from --seed %d", args.model, args.seed)
         model = wav2vec2.init_model(mcfg, seed=args.seed)
     storage = args.param_storage or args.compute_dtype
     if storage != "float32":

@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 launches = {"attention_fwd": 0, "attention_bwd": 0, "attention_fwd_sm90": 0,
             "attention_bwd_sm90": 0, "fm_norm": 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, o, lse, B, T, H, D, is_bf16, stream
     "paa_attention_fwd": (_P,) * 5 + (_I,) * 5 + (_P,),
@@ -47,10 +47,9 @@ _SIGNATURES = {
     "paa_attention_bwd_sm90": (_P,) * 10 + (_I,) * 3 + (_P,),
     # T
     "paa_attention_bwd_sm90_rows": (_I,),
-    # stft (as real pairs), table, in_domain, partials, out, B, F, T, stream
-    "paa_fm_power_sum": (_P,) * 5 + (_I,) * 3 + (_P,),
-    # B, F, T
-    "paa_fm_num_partials": (_I,) * 3,
+    # stft, table, in_domain, partials, ticket, out, B, F, T, its strides,
+    # max blocks, threads, stream
+    "paa_fm_power_sum": (_P,) * 6 + (_I,) * 3 + (_L,) * 3 + (_I,) * 2 + (_P,),
     "paa_error_string": (_I,),
 }
 

@@ -88,17 +88,72 @@ def test_attention_function_runs_both_kernels(cuda):
     assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
 
 
-@pytest.mark.parametrize("shape", [(1, 513, 626), (2, 513, 130), (3, 1, 513, 7)])
-def test_fm_kernel_matches_plain(cuda, shape):
-    tables = psycho.build_tables(AttackConfig(), cuda)
-    g = torch.Generator(device=cuda).manual_seed(sum(shape))
-    spec = torch.complex(torch.randn(shape, generator=g, device=cuda) * 10,
-                         torch.randn(shape, generator=g, device=cuda) * 10)
+def _fm_check(spec, tables):
+    """K3 against its plain version within 1e-5, one launch a call, and the
+    same bits over 10 calls."""
+    _lib.reset_launches()
     got = fm_norm.fm_weighted_power_sum(spec, tables)
+    assert _lib.launches["fm_norm"] == 1
     want = fm_norm.fm_weighted_power_sum_plain(spec, tables)
     assert float((got - want).abs() / want) <= 1e-5
     # deterministic: the same input gives the same bits
-    assert float(fm_norm.fm_weighted_power_sum(spec, tables)) == float(got)
+    assert all(torch.equal(fm_norm.fm_weighted_power_sum(spec, tables), got) for _ in range(10))
+
+
+@pytest.mark.parametrize("layout", ["frames_major", "contiguous"])
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("T", [1, 130, 626, 1251])
+def test_fm_kernel_matches_plain(cuda, layout, B, T):
+    """Both layouts K3 takes without a copy: ``torch.stft``'s, with bins
+    innermost in memory (strides (F·T, 1, F)), and the contiguous one."""
+    tables = psycho.build_tables(AttackConfig(), cuda)
+    g = torch.Generator(device=cuda).manual_seed(B * 10_000 + T)
+    shape = (B, T, 513) if layout == "frames_major" else (B, 513, T)
+    spec = torch.complex(torch.randn(shape, generator=g, device=cuda) * 10,
+                         torch.randn(shape, generator=g, device=cuda) * 10)
+    if layout == "frames_major":
+        spec = spec.transpose(1, 2)
+        assert spec.stride() == (513 * T, 1, 513)
+    _fm_check(spec, tables)
+
+
+def test_fm_kernel_on_stft_output_and_other_strides(cuda):
+    """``dsp.stft``'s own output at the main and lv60 shapes, a 4-D batch,
+    an STFT not 16-byte aligned, and a layout that is not dense (every
+    other frame), which the kernel walks through its strides."""
+    from paa_tpu_torch.ops import dsp
+
+    cfg = AttackConfig()
+    tables = psycho.build_tables(cfg, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for n in (160_000, 320_000):
+        spec = dsp.stft(torch.randn((1, n), generator=g, device=cuda) * 0.01, cfg.n_fft,
+                        cfg.hop_length, cfg.win_length)
+        assert spec.shape[-2] == 513 and spec.stride()[-2:] == (1, 513)
+        _fm_check(spec, tables)
+    spec4 = dsp.stft(torch.randn((3, 1, 16_000), generator=g, device=cuda) * 0.1, cfg.n_fft,
+                     cfg.hop_length, cfg.win_length)
+    _fm_check(spec4, tables)
+    flat = torch.complex(torch.randn(1 + 513 * 130, generator=g, device=cuda),
+                         torch.randn(1 + 513 * 130, generator=g, device=cuda))
+    unaligned = flat[1:].view(1, 130, 513).transpose(1, 2)
+    assert unaligned.data_ptr() % 16 == 8
+    _fm_check(unaligned, tables)
+    _fm_check(spec[..., ::2], tables)
+
+
+def test_fm_kernel_edge_cells(cuda):
+    """Cells at power 0, at SPL exactly 0 and 90, and off the bins' domain,
+    as chip_smoke.py's edge STFT holds them, in both layouts."""
+    tables = psycho.build_tables(AttackConfig(), cuda)
+    x = torch.zeros((1, 513, 130, 2), dtype=torch.float32)
+    x[0, 10:200, 5:60, 0] = 1.0
+    x[0, 200:400, 60:120, 0] = 1200.0
+    x[0, 200:400, 60:120, 1] = 31600.0
+    x[0, 0, :, 0] = 1.0
+    spec = torch.view_as_complex(x.to(cuda))
+    _fm_check(spec, tables)
+    _fm_check(spec.transpose(1, 2).contiguous().transpose(1, 2), tables)
 
 
 def test_fm_projection_goes_through_the_kernel(cuda):
