@@ -14,9 +14,13 @@ line:
                of one PyTorch call for the same function where there is one;
                K2 run twice must give equal bits. K1/K2 also at the
                long-clip lengths T ∈ {774, 999, 1499} with 16 heads, where
-               the JAX package runs its flash kernel. K3 at base's and
-               lv60's p, in torch.stft's layout and contiguous, must launch
-               one kernel and run one device operation a call (profiler),
+               the JAX package runs its flash kernel. K1/K2 and K3 also
+               at the base sweep's shapes (phase 7's clips are longer than
+               phase 4's). K3 at base's and lv60's p, in torch.stft's
+               layout and contiguous, must launch
+               one kernel and run one device operation a call (the nodes
+               of a CUDA graph of one call; torch.profiler's trace too,
+               where it sees the device),
                repeat its bits over 10 calls, and reports its device time
                (``device_ms``, a CUDA graph of 100 calls) beside ``ms``.
   3. tiny    — the committed tiny checkpoint: one fletcher_munson PGD train
@@ -35,17 +39,30 @@ line:
                recorded numbers, and lv60 on ~20 s synthetic clips; each
                writes a finite results.json and launches the kernels as
                often as its steps ask.
+  7. sweep   — ``python -m paa_tpu_torch.cli.sweep`` twice: wav2vec2-base at
+               full width, random weights from the seed, B=64 × ~10 s
+               synthetic clips, three fletcher_munson cells for one epoch
+               (every cell finished with finite scores, the JAX package's
+               keys in sweep_results.json, the launches its cell steps and
+               eval passes ask for, a peak within 2 % of phase 4's; wall
+               time, cell steps/s and one cell's step beside phase 4's;
+               its clips are the length phase 2 checked the kernels at);
+               and a 1-cell sweep under the anchor's flags, whose clean
+               test scores must equal phase 6's run and whose
+               perturbation.npy must match it (rtol 2e-3, atol 1e-6).
 
 Then K1/K2's WMMA route (head dim 16) at the anchor's shape, the kernels
-line ``{"kernels": [...]}`` (per kernel: launches in its run, error, ms, the
-plain version's ms, the bound and what sets it, the PyTorch call's ms), and
+line ``{"kernels": [...]}`` (per kernel and the runs it counts: launches in
+them, the shape it was checked at, error, ms, the plain version's ms, the
+bound and what sets it, the PyTorch call's ms), and
 last ``{"ok": true, "device": {...}}``.
 It exits non-zero when no CUDA device is present; it never runs on the CPU
-instead. The CLI runs write under ``chiprun_out/chip_smoke/``.
+instead. The CLI and sweep runs write under ``chiprun_out/chip_smoke/``.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import math
@@ -105,7 +122,8 @@ def load_tool(name: str):
     return module
 
 
-# K3's device timer (a CUDA graph of 100 calls) and its profiler count
+# K3's device timer (a CUDA graph of 100 calls) and its device operations
+# (the nodes of a CUDA graph of one call, and torch.profiler's names)
 fm_profile = load_tool("fm_norm_profile")
 
 
@@ -243,6 +261,12 @@ def check_fm(stft_p: torch.Tensor, tables, label: str, iters=100) -> dict:
     torch.cuda.synchronize()
     abs_err, rel = rel_err(got, want)
     bits_repeat = all(torch.equal(call(), got) for _ in range(10))
+    # the device operations of one call: the nodes of a CUDA graph that
+    # captured it decide; torch.profiler's names are kept beside them, and
+    # a trace that saw the device must agree (now and then on the H100 it
+    # sees nothing, three traces running)
+    nodes = fm_profile.graph_nodes(call)
+    work = [n for n in nodes if n in fm_profile.DEVICE_WORK]
     ops = [name for name, _us in fm_profile.device_ops(call)]
     F = stft_p.shape[-2]
     cells = stft_p.numel()
@@ -254,13 +278,14 @@ def check_fm(stft_p: torch.Tensor, tables, label: str, iters=100) -> dict:
            "shape": list(stft_p.shape), "strides": list(stft_p.stride()),
            "value": float(got), "plain_value": float(want), "max_abs_err": abs_err,
            "rel_err": rel, "tol_rel": FM_TOL, "launches_per_call": launches,
-           "device_ops_per_call": ops, "bits_repeat": bits_repeat,
+           "graph_nodes_per_call": nodes, "device_ops_per_call": ops,
+           "bits_repeat": bits_repeat,
            "ms": time_ms(call, iters), "device_ms": fm_profile.graph_ms(call),
            "plain_ms": time_ms(lambda: fm_norm.fm_weighted_power_sum_plain(stft_p, tables),
                                iters)}
     out.update(bound_ms=ms_bound, bound_by=by, library_ms=None)
     out["failed"] = [name for name, ok in (("sum", rel <= FM_TOL), ("launches", launches == 1),
-                                           ("device_ops", len(ops) == 1),
+                                           ("device_ops", work == ["kernel"] and len(ops) <= 1),
                                            ("bits", bits_repeat)) if not ok]
     emit(out)
     return out
@@ -304,6 +329,13 @@ def phase_kernels(dev) -> dict:
     results.append(check_fm(edges.transpose(1, 2).contiguous().transpose(1, 2), tables,
                             "edges_frames_major"))
     results.append(check_fm(spec_main[..., ::2], tables, "every_other_frame_strided"))
+    # the base sweep's shapes (phase 7): its synthetic corpus fixes its clip
+    # length from the seed, 160,955 samples
+    sweep_len = sweep_audio_len()
+    at_main["attention_sweep"] = check_attention(
+        MAIN_B, wav2vec2.get_config("wav2vec2-base").feat_extract_output_length(sweep_len),
+        12, 64, torch.bfloat16, dev)
+    at_main["fm_norm_sweep"] = check_fm(stft(sweep_len), tables, "sweep")
     bad = [r for r in results + list(at_main.values()) if r["failed"]]
     check(not bad, f"kernels out of tolerance: {bad}")
     return at_main
@@ -384,7 +416,8 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
                      timed_steps: int, card: str) -> dict:
     """One attack configuration at full width: random weights from SEED,
     bf16 compute and storage, fletcher_munson PGD with ``accum``
-    microbatches. Returns the launch counts of its run."""
+    microbatches. Returns the launch counts of its run, its step time and
+    its peak memory."""
     mcfg = wav2vec2.get_config(preset)
     L = mcfg.num_hidden_layers
     t0 = time.perf_counter()
@@ -447,7 +480,7 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
           "launches": launches, "launches_per_train_step": per_step})
     check(finite, f"{phase}: non-finite loss or perturbation")
     check(p_abs > 0.0, f"{phase}: the perturbation did not change")
-    return launches
+    return {"launches": launches, "step_s": step_s, "peak": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -469,20 +502,18 @@ LV60_CLI_ARGV = ["--model", "wav2vec2-large-lv60", "--dataset", "synthetic",
                  "--norm_type", "fletcher_munson", "--optimizer_type", "pgd"]
 
 
-def run_cli(name: str, argv: list[str]) -> tuple[dict, dict, dict]:
-    """Run the entry point as ``python -m`` runs it, in this process so that
-    the launch counters see its kernels: (results.json, run facts, launch
-    counts). One epoch, no inspection samples, a fresh run directory."""
+def run_module(module: str, name: str, argv: list[str]) -> tuple[str, float, dict]:
+    """Run ``python -m module argv`` in this process, so that the launch
+    counters see its kernels, into a fresh save root: (save root, seconds,
+    launch counts)."""
     root = os.path.join(RUNS_DIR, name)
     shutil.rmtree(root, ignore_errors=True)
-    argv = argv + ["--num_epochs", "1", "--num_items_to_inspect", "0", "--no_resume",
-                   "--save_root", root]
     saved_argv = sys.argv
-    sys.argv = ["paa_tpu_torch.cli.run_attack", *argv]
+    sys.argv = [module, *argv, "--save_root", root]
     _lib.reset_launches()
     t0 = time.perf_counter()
     try:
-        runpy.run_module("paa_tpu_torch.cli.run_attack", run_name="__main__", alter_sys=True)
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
         code = 0  # main() returned without sys.exit
     except SystemExit as e:
         code = e.code
@@ -490,36 +521,57 @@ def run_cli(name: str, argv: list[str]) -> tuple[dict, dict, dict]:
         sys.argv = saved_argv
     seconds = time.perf_counter() - t0
     launches = dict(_lib.launches)
-    check(code == 0, f"cli {name}: run_attack exited {code}")
+    check(code == 0, f"{name}: {module} exited {code}")
+    return root, seconds, launches
+
+
+def run_facts(name: str, log_path: str, metrics_path: str) -> dict:
+    """The splits and clip length from a run's log, and its epochs from its
+    metrics.jsonl."""
+    with open(log_path) as f:
+        split = re.search(r"splits: train=(\d+) eval=(\d+) test=(\d+) \| audio_len=(\d+)",
+                          f.read())
+    check(split is not None, f"{name}: no split line in {log_path}")
+    with open(metrics_path) as f:
+        lines = [json.loads(line) for line in f]
+    n_train, n_eval, n_test, audio_len = map(int, split.groups())
+    return {"epochs": len(lines), "train": n_train, "eval": n_eval, "test": n_test,
+            "audio_len": audio_len, "metrics": lines}
+
+
+def run_cli(name: str, argv: list[str]) -> tuple[dict, dict, dict]:
+    """The entry point as ``python -m`` runs it: (results.json, run facts,
+    launch counts). One epoch, no inspection samples, a fresh run
+    directory."""
+    root, seconds, launches = run_module(
+        "paa_tpu_torch.cli.run_attack", name,
+        argv + ["--num_epochs", "1", "--num_items_to_inspect", "0", "--no_resume"])
     (run_dir,) = [d for d, _, files in os.walk(root) if "results.json" in files]
     with open(os.path.join(run_dir, "results.json")) as f:
         results = json.load(f)
-    with open(os.path.join(run_dir, "train.log")) as f:
-        split = re.search(r"splits: train=(\d+) eval=(\d+) test=(\d+) \| audio_len=(\d+)",
-                          f.read())
-    check(split is not None, f"cli {name}: no split line in train.log")
-    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
-        epochs = sum(1 for _ in f)
-    n_train, n_eval, n_test, audio_len = map(int, split.groups())
-    facts = {"run_dir": run_dir, "seconds": seconds, "epochs": epochs, "train": n_train,
-             "eval": n_eval, "test": n_test, "audio_len": audio_len}
-    return results, facts, launches
+    facts = run_facts(name, os.path.join(run_dir, "train.log"),
+                      os.path.join(run_dir, "metrics.jsonl"))
+    del facts["metrics"]
+    return results, {"run_dir": run_dir, "seconds": seconds, **facts}, launches
 
 
-def expected_cli_launches(argv: list[str], facts: dict, fm: bool, route: str) -> dict:
-    """What one CLI run launches: each train step runs every layer forward
-    and backward per microbatch and projects once; the clean eval runs once,
-    the perturbed eval once per epoch, the test split clean and perturbed;
-    the initial perturbation is projected once. ``route`` is the suffix of
-    the attention counters ("" for WMMA, "_sm90" for wgmma)."""
-    args = parser.parse_args(argv)
+def expected_cli_launches(argv: list[str], facts: dict, fm: bool, route: str,
+                          cells: int = 1) -> dict:
+    """What one CLI run, or a sweep of ``cells`` cells, launches: each cell's
+    train step runs every layer forward and backward per microbatch and
+    projects once; the clean eval runs once, the perturbed eval once per
+    cell and epoch, the test split clean once and perturbed once per cell;
+    each cell's initial perturbation is projected once. ``route`` is the
+    suffix of the attention counters ("" for WMMA, "_sm90" for wgmma)."""
+    args = parser.create_arg_parser().parse_known_args(argv)[0]
     A = args.accum_steps
     L = wav2vec2.get_config(args.model).num_hidden_layers
     nb = lambda n: math.ceil(n / args.batch_size)
-    steps = facts["epochs"] * nb(facts["train"])
-    evals = nb(facts["eval"]) * (1 + facts["epochs"]) + 2 * nb(facts["test"])
+    steps = cells * facts["epochs"] * nb(facts["train"])
+    evals = nb(facts["eval"]) * (1 + cells * facts["epochs"]) + (1 + cells) * nb(facts["test"])
     return counts(**{f"attention_fwd{route}": L * (A * steps + evals),
-                     f"attention_bwd{route}": L * A * steps, "fm_norm": (steps + 1) if fm else 0})
+                     f"attention_bwd{route}": L * A * steps,
+                     "fm_norm": (steps + cells) if fm else 0})
 
 
 def phase_cli(card: str) -> dict:
@@ -538,7 +590,9 @@ def phase_cli(card: str) -> dict:
     check(ctc_rel <= ANCHOR_TOL["ctc_rel"], f"cli anchor: clean CTC {clean['ctc']}")
     check(wer_abs <= ANCHOR_TOL["wer_abs"], f"cli anchor: clean WER {clean['wer']}")
     check(launches == want, f"cli anchor: launched {launches}, want {want}")
-    out = {"anchor": launches, "anchor_frames":
+    out = {"anchor": launches, "anchor_run": {"run_dir": facts["run_dir"], "final_test_clean": clean,
+                                              "audio_len": facts["audio_len"]},
+           "anchor_frames":
            wav2vec2.get_config("wav2vec2-tiny").feat_extract_output_length(facts["audio_len"])}
 
     # (b) lv60 on ~20 s clips, random weights
@@ -557,44 +611,161 @@ def phase_cli(card: str) -> dict:
     return {**out, "cli_lv60": launches}
 
 
-# (row name, launch counter, source, TPU kernel it replaces, run whose
-# launches it reports, phase-2 check and direction it takes its numbers
-# from). The JAX package's flash kernel (K4) runs where its fused kernel's
-# score tile no longer fits VMEM, T ≥ 774; on the card K1 and K2 cover those
-# lengths, so K4's rows are theirs, counted in lv60. The WMMA routes of K1
-# and K2 (float32, and bf16 with head dim 16) are counted in the CLI's tiny
-# anchor, which runs bf16 with head dim 16.
+# ---------------------------------------------------------------------------
+# phase 7: the sweep, python -m paa_tpu_torch.cli.sweep
+# ---------------------------------------------------------------------------
+
+# wav2vec2-base on 226 synthetic clips of 20-24 words: 160,955-sample (10.06
+# s) clips, 128 train clips (2 batches of 64), 16 eval and 16 test clips
+SWEEP_ARGV = ["--model", "wav2vec2-base", "--dataset", "synthetic",
+              "--synthetic_samples", "226", "--synthetic_words", "20,24", "--batch_size", "64",
+              "--optimizer_type", "pgd", "--norms", "fletcher_munson",
+              "--grid", json.dumps({"fletcher_munson": [2.0, 4.0, 8.0]})]
+SWEEP_FLAGS = ["--epochs_per_cell", "1", "--num_items_to_inspect", "0", "--no_resume"]
+# the 1-cell sweep under the anchor's flags: run_attack's default norm
+ANCHOR_SWEEP_ARGV = ANCHOR_ARGV + ["--norms", "max_phon", "--grid", json.dumps({"max_phon": [20.0]})]
+JAX_SWEEP_RECORD = os.path.join(ROOT, "benchmarks", "quality_r5", "cells",
+                                "adam_ab_sweep_results.json")
+SWEEP_PEAK_TOL = 0.02  # relative to phase 4's peak
+ONE_CELL_TOL = {"rtol": 2e-3, "atol": 1e-6}  # perturbation.npy against run_attack's
+
+
+@functools.cache
+def sweep_audio_len() -> int:
+    """The base sweep's clip length, from the corpus its flags make."""
+    args = parser.create_arg_parser().parse_known_args(SWEEP_ARGV)[0]
+    return parser.pipeline_from_args(args).audio_len
+
+
+def run_sweep(name: str, argv: list[str]) -> tuple[dict, dict, dict, int]:
+    """The sweep as ``python -m`` runs it, one epoch a cell: (its
+    sweep_results.json, run facts, launch counts, peak device memory)."""
+    torch.cuda.reset_peak_memory_stats()
+    root, seconds, launches = run_module("paa_tpu_torch.cli.sweep", name, argv + SWEEP_FLAGS)
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(root, "sweep_results.json")) as f:
+        summary = json.load(f)
+    first = next(iter(summary.values()))["cells"][0]["dir"]
+    facts = run_facts(name, os.path.join(root, "sweep.log"),
+                      os.path.join(first, "metrics.jsonl"))
+    return summary, {"root": root, "seconds": seconds, **facts}, launches, peak
+
+
+def phase_sweep(card: str, main: dict, anchor: dict) -> dict:
+    """Returns each sweep's launch counts."""
+    with open(JAX_SWEEP_RECORD) as f:
+        record = json.load(f)
+    want_keys = {k for entry in record.values() for k in entry}
+    want_cell_keys = {k for entry in record.values() for c in entry["cells"] for k in c}
+
+    # (a) base at full width, three fletcher_munson cells
+    summary, facts, launches, peak = run_sweep("sweep", SWEEP_ARGV)
+    check(list(summary) == ["fletcher_munson"], f"sweep: norms {list(summary)}")
+    entry = summary["fletcher_munson"]
+    cells = entry["cells"]
+    want = expected_cli_launches(SWEEP_ARGV, facts, fm=True, route="_sm90", cells=len(cells))
+    cell_step_ms = [line["step_time_ms"] for line in facts.pop("metrics")]
+    peak_rel = peak / main["peak"] - 1.0
+    scores = ("final_ctc", "best_eval_pert_ctc", "test_clean_ctc", "test_clean_wer",
+              "test_pert_ctc", "test_pert_wer")
+    emit({"phase": "sweep", "run": "base", **facts, "clip_s": facts["audio_len"] / 16000,
+          "cells": [{k: c[k] for k in ("size", "best_epoch") + scores} for c in cells],
+          "cell_steps_per_sec": entry["cell_steps_per_sec"], "n_cell_steps": entry["n_cell_steps"],
+          "programs_built": entry["programs_built"], "cell_step_ms": cell_step_ms,
+          "main_step_ms": 1e3 * main["step_s"],
+          "cell_step_over_main": cell_step_ms[0] / (1e3 * main["step_s"]),
+          "peak_mem_bytes": peak, "main_peak_mem_bytes": main["peak"], "peak_rel": peak_rel,
+          "tolerance": {"peak_rel": SWEEP_PEAK_TOL}, "launches": launches,
+          "want_launches": want, "card": card})
+    check(len(cells) == 3, f"sweep: {len(cells)} cells")
+    for c in cells:
+        with open(os.path.join(c["dir"], "results.json")) as f:
+            check(json.load(f).get("finished_training") is True, f"sweep: cell {c['size']} unfinished")
+        check(all(math.isfinite(c[k]) for k in scores), f"sweep: non-finite scores in {c}")
+        check(set(c) == want_cell_keys, f"sweep: cell keys {sorted(c)}")
+    check(set(entry) == want_keys, f"sweep: keys {sorted(entry)}")
+    check(entry["n_cell_steps"] == len(cells) * facts["epochs"] * math.ceil(facts["train"] / 64),
+          f"sweep: {entry['n_cell_steps']} cell steps")
+    check(launches == want, f"sweep: launched {launches}, want {want}")
+    check(abs(peak_rel) <= SWEEP_PEAK_TOL, f"sweep: peak {peak} against phase 4's {main['peak']}")
+    # phase 2 held the kernels at this run's shapes: every batch is padded
+    # to 64 rows of audio_len samples, K3 sees one cell's p
+    check(facts["audio_len"] == sweep_audio_len(),
+          f"sweep: clips of {facts['audio_len']} samples, phase 2 checked {sweep_audio_len()}")
+
+    # (b) one cell under the anchor's flags against phase 6's run_attack run
+    summary, facts, anchor_launches, _ = run_sweep("sweep_anchor", ANCHOR_SWEEP_ARGV)
+    (cell,) = summary["max_phon"]["cells"]
+    with open(os.path.join(cell["dir"], "results.json")) as f:
+        clean = json.load(f)["final_test_clean"]
+    p_sweep = np.load(os.path.join(cell["dir"], "perturbation.npy"))
+    p_run = np.load(os.path.join(anchor["run_dir"], "perturbation.npy"))
+    p_diff = float(np.abs(p_sweep - p_run).max())
+    p_close = bool(np.allclose(p_sweep, p_run, **ONE_CELL_TOL))
+    want = expected_cli_launches(ANCHOR_SWEEP_ARGV, facts, fm=False, route="")
+    # the same clips as phase 6's anchor: the WMMA check at the anchor's
+    # frames covers this run's shapes too
+    check(facts["audio_len"] == anchor["audio_len"],
+          f"sweep anchor: clips of {facts['audio_len']} samples, the anchor's {anchor['audio_len']}")
+    facts.pop("metrics")
+    emit({"phase": "sweep", "run": "anchor_one_cell", **facts, "final_test_clean": clean,
+          "run_attack_final_test_clean": anchor["final_test_clean"],
+          "best_epoch": cell["best_epoch"], "perturbation_max_abs_diff": p_diff,
+          "perturbation_within_tol": p_close, "tolerance": ONE_CELL_TOL,
+          "launches": anchor_launches, "want_launches": want, "card": card})
+    check(clean == anchor["final_test_clean"],
+          f"sweep anchor: clean test {clean} against run_attack's {anchor['final_test_clean']}")
+    check(p_close, f"sweep anchor: perturbation differs by {p_diff}")
+    check(anchor_launches == want, f"sweep anchor: launched {anchor_launches}, want {want}")
+    return {"sweep": launches, "sweep_anchor": anchor_launches}
+
+
+# (row name, launch counter, source, TPU kernel it replaces, runs whose
+# launches it reports, check at those runs' shapes and direction it takes
+# its numbers from). The base sweep's clips are longer than phase 4's, so
+# its K1/K2/K3 rows are its own, with phase 2's numbers at its shapes. The JAX
+# package's flash kernel (K4) runs where its fused kernel's score tile no
+# longer fits VMEM, T ≥ 774; on the card K1 and K2 cover those lengths, so
+# K4's rows are theirs, counted in lv60. The WMMA routes of K1 and K2
+# (float32, and bf16 with head dim 16) are counted in the CLI's tiny anchor
+# and its 1-cell sweep, which run bf16 with head dim 16 on the same clips.
 K1_TPU = "paa_tpu/ops/pallas/attention.py:107 (_fwd_kernel, via _attend_fwd :196)"
 K2_TPU = "paa_tpu/ops/pallas/attention.py:133 (_bwd_kernel, via _attend_bwd :218)"
 K4_TPU = "paa_tpu/models/wav2vec2.py:766 (_flash_attention, stock Pallas flash_attention, {})"
+K3_TPU = "paa_tpu/ops/pallas/fm_norm.py:40 (_kernel, via fm_weighted_power_sum :61)"
 KERNELS = (
     ("attention_fwd", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu", K1_TPU,
-     "main", "attention", "fwd"),
+     ("main",), "attention", "fwd"),
     ("attention_bwd", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu", K2_TPU,
-     "main", "attention", "bwd"),
-    ("fm_norm", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu",
-     "paa_tpu/ops/pallas/fm_norm.py:40 (_kernel, via fm_weighted_power_sum :61)", "main",
-     "fm_norm", None),
+     ("main",), "attention", "bwd"),
+    ("fm_norm", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU, ("main",), "fm_norm", None),
+    ("attention_fwd_sweep", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
+     K1_TPU, ("sweep",), "attention_sweep", "fwd"),
+    ("attention_bwd_sweep", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
+     K2_TPU, ("sweep",), "attention_sweep", "bwd"),
+    ("fm_norm_sweep", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU, ("sweep",),
+     "fm_norm_sweep", None),
     ("flash_attention_fwd", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
-     K4_TPU.format("forward"), "lv60", "attention_long", "fwd"),
+     K4_TPU.format("forward"), ("lv60",), "attention_long", "fwd"),
     ("flash_attention_bwd", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
-     K4_TPU.format("backward"), "lv60", "attention_long", "bwd"),
+     K4_TPU.format("backward"), ("lv60",), "attention_long", "bwd"),
     ("attention_fwd_wmma", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
-     "anchor", "attention_tiny", "fwd"),
+     ("anchor", "sweep_anchor"), "attention_tiny", "fwd"),
     ("attention_bwd_wmma", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
-     "anchor", "attention_tiny", "bwd"),
+     ("anchor", "sweep_anchor"), "attention_tiny", "bwd"),
 )
 
 
 def kernel_row(check_out: dict, direction: str | None) -> dict:
-    """The numbers of one kernel row from its phase-2 check."""
+    """The numbers of one kernel row from its check."""
     if direction is None:  # K3
-        keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+        keys = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         return {k: check_out[k] for k in keys}
     err = (check_out["o_max_abs_err"] if direction == "fwd" else
            max(check_out[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")))
-    return {"max_abs_err": err, "ms": check_out[f"{direction}_ms"],
+    return {"shape": [check_out[k] for k in ("B", "T", "H", "d")], "max_abs_err": err,
+            "ms": check_out[f"{direction}_ms"],
             "plain_ms": check_out[f"{direction}_plain_ms"],
             "bound_ms": check_out[f"{direction}_bound_ms"],
             "bound_by": check_out[f"{direction}_bound_by"],
@@ -617,12 +788,22 @@ def main() -> int:
 
     at_main = phase_kernels(dev)
     phase_tiny(dev)
-    launches = {"main": phase_full_width(dev, "main", "wav2vec2-base", MAIN_B, MAIN_T, 1, 3, smi)}
+    main_run = phase_full_width(dev, "main", "wav2vec2-base", MAIN_B, MAIN_T, 1, 3, smi)
+    launches = {"main": main_run["launches"]}
     torch.cuda.empty_cache()
     launches["lv60"] = phase_full_width(dev, "lv60", "wav2vec2-large-lv60", LV60_B, LV60_T,
-                                        LV60_ACCUM, 2, smi)
+                                        LV60_ACCUM, 2, smi)["launches"]
     torch.cuda.empty_cache()
     launches.update(phase_cli(smi))
+    torch.cuda.empty_cache()
+    launches.update(phase_sweep(smi, main_run, launches.pop("anchor_run")))
+    # torch.profiler now and then sees no device operation in three traces
+    # (once after phases 3-7, once in phase 2): whether it still sees the
+    # device is recorded here, not checked
+    spec = torch.randn((1, 513, 626), dtype=torch.complex64, device=dev)
+    tables = psycho.build_tables(AttackConfig(norm_type="fletcher_munson"), dev)
+    emit({"phase": "profiler_probe", "device_ops": fm_profile.device_ops(
+        lambda: fm_norm.fm_weighted_power_sum(spec, tables))})
     # the WMMA route at the anchor's shape: its 32 clips, 4 heads of 16
     at_main["attention_tiny"] = check_attention(32, launches.pop("anchor_frames"), 4, 16,
                                                 torch.bfloat16, dev)
@@ -630,8 +811,10 @@ def main() -> int:
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[run][counter], **kernel_row(at_main[chk], direction)}
-        for name, counter, src, rep, run, chk, direction in KERNELS]})
+         "launches": sum(launches[run][counter] for run in runs),
+         "launches_by_run": {run: launches[run][counter] for run in runs},
+         **kernel_row(at_main[chk], direction)}
+        for name, counter, src, rep, runs, chk, direction in KERNELS]})
     check(not any(m.split(".")[0] in ("jax", "flax", "optax", "paa_tpu") for m in sys.modules),
           "JAX or the JAX package was imported")
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

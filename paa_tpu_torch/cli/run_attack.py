@@ -17,27 +17,12 @@ import sys
 
 import torch
 
-from paa_tpu_torch.data import datasets
 from paa_tpu_torch.train import artifacts, log_helpers
 from paa_tpu_torch import runtime
 from paa_tpu_torch.cli import parser as parser_lib
 from paa_tpu_torch.config import SWEEP_ARG
-from paa_tpu_torch.data import pipeline as pipeline_lib
 from paa_tpu_torch.models import checkpoint_io, hf_cache, wav2vec2
 from paa_tpu_torch.train import checkpoint, loop
-
-
-def _parse_words(spec: str | None) -> tuple[int, int] | None:
-    """``--synthetic_words "MIN,MAX"`` → (min, max) or None."""
-    if not spec:
-        return None
-    try:
-        lo, hi = (int(v) for v in spec.split(","))
-    except ValueError:
-        raise SystemExit(f"--synthetic_words expects 'MIN,MAX' (two integers), got {spec!r}")
-    if lo < 1 or hi < lo:
-        raise SystemExit(f"--synthetic_words needs 1 <= MIN <= MAX, got {spec!r}")
-    return lo, hi
 
 
 def make_save_dir(args) -> str:
@@ -114,22 +99,7 @@ def main(args) -> int:
         cfg = parser_lib.config_from_args(args)
         cparams = parser_lib.constraint_params_from_args(args, device=device)
 
-        samples = datasets.load_dataset_tuples(
-            args.dataset,
-            seed=args.seed,
-            data_root=args.data_root,
-            small_data=args.small_data,
-            synthetic_samples=args.synthetic_samples,
-            synthetic_words=_parse_words(args.synthetic_words),
-        )
-        pipe = pipeline_lib.build_pipeline(
-            samples, relative_audio_length=args.relative_audio_length,
-            seed=args.seed, target_sr=args.sr,
-        )
-        log.info("splits: train=%d eval=%d test=%d | audio_len=%d (%.1fs)",
-                 len(pipe.train), len(pipe.eval), len(pipe.test),
-                 pipe.audio_len, pipe.audio_len / args.sr)
-
+        pipe = parser_lib.pipeline_from_args(args)
         model = load_model(args, device)
         init_p = None
         if args.resume_from:
@@ -141,6 +111,7 @@ def main(args) -> int:
             num_items_to_inspect=args.num_items_to_inspect,
             resume=not args.no_resume and not args.small_data,
             init_p=init_p,
+            debug_plots=args.debug_plots,
             tensorboard=args.tensorboard,
         )
         return 0

@@ -182,3 +182,13 @@ SWEEP_ARG = {**SWEEP_FIELD, "min_max_freqs": "min_freq_attack"}
 def attack_size_value(cfg: AttackConfig, params: ConstraintParams) -> float:
     """The scalar size of the active constraint, for run naming."""
     return float(getattr(params, SWEEP_FIELD[cfg.norm_type]))
+
+
+def with_sweep_value(params: ConstraintParams, norm_type: str, value) -> ConstraintParams:
+    """``params`` with the sweep field of ``norm_type`` replaced by ``value``,
+    a scalar or a per-cell vector, as float32 on that field's device
+    (reference: ``paa_tpu/config.py:231-237``)."""
+    field = SWEEP_FIELD[norm_type]
+    old = getattr(params, field)
+    return params._replace(**{field: torch.as_tensor(value, dtype=torch.float32,
+                                                     device=old.device)})

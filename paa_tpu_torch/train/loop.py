@@ -16,10 +16,8 @@ step:
     checkpointed (train/checkpoint.py), and the shuffle order is a pure
     function of (seed, epoch).
 
-The helpers of ``train`` (scoring, log_helpers, tb_events and the WAV,
-loss-plot, inspection and results.json writers of artifacts) are the port's
-own copies of the JAX package's. The STFT spectrograms and the projection
-debug plots are not ported yet (ROADMAP.md).
+The helpers of ``train`` (scoring, log_helpers, tb_events and artifacts)
+are the port's own copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -98,6 +96,55 @@ def _batch_wer(ids: np.ndarray, ref_texts: list[str]) -> tuple[float, list[str]]
     return wer_ops.wer(preds, [r.lower() for r in ref_texts]), preds
 
 
+def _scores(pending: list, texts: list[str], empty: float,
+            preds: list | None = None) -> scoring.Scores:
+    """Per-batch sums averaged over batches, as the reference aggregates
+    them; ``pending`` holds (StepMetrics, host row mask, row indices) per
+    batch, WER is against ``texts``, ``empty`` is the score of no batch, and
+    ``preds`` (if given) collects the lowercased greedy decodes."""
+    ctc_scores, wer_scores = [], []
+    for m, w, indices in pending:
+        ctc_scores.append(float(m.ctc_loss))
+        batch_wer, batch_preds = _batch_wer(m.greedy_ids.cpu().numpy()[w],
+                                            [texts[i] for i in indices[w]])
+        wer_scores.append(batch_wer)
+        if preds is not None:
+            preds.extend(batch_preds)
+    avg = lambda v: sum(v) / len(v) if v else empty
+    return scoring.Scores(avg(ctc_scores), avg(wer_scores))
+
+
+def _write_epoch(metrics_path: str, tb_writer, epoch: int, train: scoring.Scores,
+                 clean: scoring.Scores, pert: scoring.Scores, step_ms: float, lr: float,
+                 extra: dict | None = None) -> None:
+    """One epoch's line of metrics.jsonl and, with a writer, its
+    TensorBoard scalars; ``extra`` holds further ``eval_*`` fields."""
+    extra = extra or {}
+    with open(metrics_path, "a") as f:
+        f.write(json.dumps({
+            "epoch": epoch, "train_ctc": train.ctc, "train_wer": train.wer,
+            "eval_clean_ctc": clean.ctc, "eval_clean_wer": clean.wer,
+            "eval_pert_ctc": pert.ctc, "eval_pert_wer": pert.wer,
+            "step_time_ms": step_ms, "lr": lr, **extra,
+        }) + "\n")
+    if tb_writer is not None:
+        tb_writer.scalars({
+            "train/ctc": train.ctc, "train/wer": train.wer,
+            "eval/clean_ctc": clean.ctc, "eval/clean_wer": clean.wer,
+            "eval/pert_ctc": pert.ctc, "eval/pert_wer": pert.wer,
+            "train/step_time_ms": step_ms, "train/lr": lr,
+            **{f"eval/{k[len('eval_'):]}": v for k, v in extra.items()},
+        }, step=epoch)
+        tb_writer.flush()
+
+
+def _running_scores(history: dict, mode: str) -> dict:
+    """results.json's best-so-far perturbed-eval and train scores."""
+    agg = lambda key: scoring.best_agg(history[key], mode)
+    return {"eval_score_perturbed": {"ctc": agg("eval_pert_ctc"), "wer": agg("eval_pert_wer")},
+            "train_score": {"ctc": agg("train_ctc"), "wer": agg("train_wer")}}
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -136,19 +183,20 @@ class AttackRunner:
 
     # -- perturbation lifecycle ------------------------------------------
 
-    def init_perturbation(self, seed: int) -> torch.Tensor:
+    def init_perturbation(self, seed: int, cparams: ConstraintParams | None = None) -> torch.Tensor:
         """randn(1, audio_len) from a CPU generator seeded with ``seed``,
-        projected once. SNR and TV size their ball from the first train
-        batch. (The JAX package draws from ``jax.random``, which torch does
-        not reproduce; pass ``init_p`` to :func:`run_attack` for a run that
-        starts where a JAX run starts.)"""
+        projected once with ``cparams`` (default: the runner's). SNR and TV
+        size their ball from the first train batch. (The JAX package draws
+        from ``jax.random``, which torch does not reproduce; pass ``init_p``
+        to :func:`run_attack` for a run that starts where a JAX run starts.)"""
         gen = torch.Generator().manual_seed(seed)
         p = torch.randn((1, self.pipe.audio_len), generator=gen).to(self.device)
         clean = None
         if self.cfg.norm_type in ("snr", "tv"):
             first = next(self.pipe.train.batches(self.cfg.batch_size))
             clean = torch.from_numpy(first.audio).to(self.device)
-        p = projections.perturbation_constraint(p, clean, self.cfg, self.cparams, self.tables)
+        p = projections.perturbation_constraint(
+            p, clean, self.cfg, self.cparams if cparams is None else cparams, self.tables)
         logger.info("Perturbation waveform shape: %s", tuple(p.shape))
         return p
 
@@ -167,16 +215,8 @@ class AttackRunner:
                                               batch.weights, self.cparams, lr)
             pending.append((m, pipeline_lib.host_mask(batch), batch.indices))
         _sync(self.device)
-        wall = time.perf_counter() - t0
-        # per-batch sums averaged over batches, as the reference aggregates
-        ctc_scores, wer_scores = [], []
-        for m, w, indices in pending:
-            ctc_scores.append(float(m.ctc_loss))
-            ref = [self.pipe.train.texts[i] for i in indices[w]]
-            wer_scores.append(_batch_wer(m.greedy_ids.cpu().numpy()[w], ref)[0])
-        avg = lambda v: sum(v) / max(len(v), 1)
-        step_time = wall / max(len(pending), 1)
-        return p, opt_state, scoring.Scores(avg(ctc_scores), avg(wer_scores)), step_time
+        step_time = (time.perf_counter() - t0) / max(len(pending), 1)
+        return p, opt_state, _scores(pending, self.pipe.train.texts, 0.0), step_time
 
     def evaluate(self, split: pipeline_lib.Split, p, perturbed: bool, return_preds: bool = False):
         """Clean pass with p = 0; perturbed adds p unclamped. Targeted runs
@@ -189,16 +229,8 @@ class AttackRunner:
             labels, pads = self._labels(batch)
             m = self.eval_step(p_eff, batch.audio, labels, pads, batch.weights)
             pending.append((m, pipeline_lib.host_mask(batch), batch.indices))
-        ctc_scores, wer_scores, preds = [], [], []
-        for m, w, indices in pending:
-            ctc_scores.append(float(m.ctc_loss))
-            ref = [split.texts[i] for i in indices[w]]
-            batch_wer, batch_preds = _batch_wer(m.greedy_ids.cpu().numpy()[w], ref)
-            wer_scores.append(batch_wer)
-            if return_preds:
-                preds.extend(batch_preds)
-        avg = lambda v: sum(v) / len(v) if v else float("inf")
-        scores = scoring.Scores(avg(ctc_scores), avg(wer_scores))
+        preds = [] if return_preds else None
+        scores = _scores(pending, split.texts, float("inf"), preds)
         return (scores, preds) if return_preds else scores
 
     def inspect_samples(self, p, num_items: int, seed: int = 0) -> list[dict]:
@@ -230,13 +262,6 @@ class AttackRunner:
         return out
 
 
-def _save_epoch_bundle(save_dir: str, p: np.ndarray, cfg: AttackConfig) -> None:
-    """perturbation.wav, the 5× amplified copy and the waveform plot."""
-    artifacts.save_audio(os.path.join(save_dir, "perturbation.wav"), p, cfg.sr)
-    artifacts.save_audio(os.path.join(save_dir, "perturbation_5x.wav"), p, cfg.sr, amplify=5.0)
-    artifacts.plot_pert(os.path.join(save_dir, "perturbation.png"), p, cfg.sr)
-
-
 def run_attack(
     cfg: AttackConfig,
     model: torch.nn.Module,
@@ -246,11 +271,13 @@ def run_attack(
     num_items_to_inspect: int = 12,
     resume: bool = True,
     init_p: np.ndarray | None = None,
+    debug_plots: bool = False,
     tensorboard: bool = False,
 ) -> RunResult:
     """Full attack run with best-tracking, early stopping and artifacts, on
     the device of ``model``. ``init_p`` warm-starts from a saved
-    perturbation; ``tensorboard`` mirrors the per-epoch metrics to
+    perturbation; ``debug_plots`` draws the projection debug panels on each
+    improving epoch; ``tensorboard`` mirrors the per-epoch metrics to
     ``save_dir/tb/``."""
     os.makedirs(save_dir, exist_ok=True)
     runner = AttackRunner(cfg, model, pipe, cparams)
@@ -349,23 +376,8 @@ def run_attack(
         )
         emis_fields = ({"eval_emission_rate": emis["emission_rate"],
                         "eval_wer_to_target": emis["wer_to_target"]} if emis else {})
-        with open(metrics_path, "a") as f:
-            f.write(json.dumps({
-                "epoch": epoch, "train_ctc": train_scores.ctc,
-                "train_wer": train_scores.wer, "eval_clean_ctc": clean.ctc,
-                "eval_clean_wer": clean.wer, "eval_pert_ctc": pert.ctc,
-                "eval_pert_wer": pert.wer, "step_time_ms": step_ms,
-                "lr": optimizers.step_lr(cfg, epoch), **emis_fields,
-            }) + "\n")
-        if tb_writer is not None:
-            tb_writer.scalars({
-                "train/ctc": train_scores.ctc, "train/wer": train_scores.wer,
-                "eval/clean_ctc": clean.ctc, "eval/clean_wer": clean.wer,
-                "eval/pert_ctc": pert.ctc, "eval/pert_wer": pert.wer,
-                "train/step_time_ms": step_ms, "train/lr": optimizers.step_lr(cfg, epoch),
-                **{f"eval/{k[len('eval_'):]}": v for k, v in emis_fields.items()},
-            }, step=epoch)
-            tb_writer.flush()
+        _write_epoch(metrics_path, tb_writer, epoch, train_scores, clean, pert, step_ms,
+                     optimizers.step_lr(cfg, epoch), emis_fields)
         artifacts.save_loss_plot(
             {"ctc": history["train_ctc"], "wer": history["train_wer"]},
             {"ctc": history["eval_clean_ctc"], "wer": history["eval_clean_wer"]},
@@ -376,14 +388,7 @@ def run_attack(
             save_dir, cfg.norm_type, size_str,
             epoch=epoch, finished_training=False,
             eval_score_clean={"ctc": clean.ctc, "wer": clean.wer},
-            eval_score_perturbed={
-                "ctc": scoring.best_agg(history["eval_pert_ctc"], cfg.attack_mode),
-                "wer": scoring.best_agg(history["eval_pert_wer"], cfg.attack_mode),
-            },
-            train_score={
-                "ctc": scoring.best_agg(history["train_ctc"], cfg.attack_mode),
-                "wer": scoring.best_agg(history["train_wer"], cfg.attack_mode),
-            },
+            **_running_scores(history, cfg.attack_mode),
             steps_per_sec=(1000.0 / step_ms if step_ms else None),
         )
 
@@ -394,7 +399,10 @@ def run_attack(
             best_epoch = epoch
             best_p = p.detach().cpu().numpy()
             checkpoint.save_perturbation(pert_path, best_p)
-            _save_epoch_bundle(save_dir, best_p[0], cfg)
+            artifacts.save_epoch_bundle(save_dir, best_p[0], cfg)
+            if debug_plots:
+                artifacts.save_debug_plots(save_dir, best_p, cfg, cparams, runner.tables,
+                                           tag=f"epoch{epoch}")
             if num_items_to_inspect > 0:
                 artifacts.inspect_samples(
                     save_dir, runner.inspect_samples(p, num_items_to_inspect),
@@ -444,10 +452,7 @@ def run_attack(
     artifacts.save_json_results(
         save_dir, cfg.norm_type, size_str,
         epoch=best_epoch, finished_training=True, best_epoch=best_epoch,
-        best_train_score={
-            "ctc": scoring.best_agg(history["train_ctc"], cfg.attack_mode),
-            "wer": scoring.best_agg(history["train_wer"], cfg.attack_mode),
-        },
+        best_train_score=_running_scores(history, cfg.attack_mode)["train_score"],
         eval_score_clean={"ctc": clean_test.ctc, "wer": clean_test.wer},
         eval_score_perturbed={"ctc": pert_test.ctc, "wer": pert_test.wer},
         final_test_clean={"ctc": clean_test.ctc, "wer": clean_test.wer},

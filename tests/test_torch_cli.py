@@ -15,6 +15,7 @@ from paa_tpu.cli import parser as jparser
 from paa_tpu.cli import run_attack as jrun
 from paa_tpu_torch.cli import parser as tparser
 from paa_tpu_torch.cli import run_attack as trun
+from paa_tpu_torch.train import artifacts
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_CKPT = os.path.join(REPO, "checkpoints", "wav2vec2-tiny-synthetic.safetensors")
@@ -71,7 +72,7 @@ def test_same_argv_same_config(argv):
     ["--conv_impl", "hybrid"],
     ["--device_probe_timeout", "60"],
     ["--profile"],
-    ["--debug_plots"],
+    ["--conv_impl", "pairdot"],
     ["--platform", "tpu"],
 ])
 def test_tpu_only_flags_are_refused(argv, capsys):
@@ -87,7 +88,8 @@ def test_dense_attention_is_accepted_on_the_cpu():
 
 def test_entry_point_runs_on_the_cpu(tmp_path):
     """``--platform cpu``: one epoch on the tiny checkpoint writes the run
-    directory of the JAX CLI."""
+    directory of the JAX CLI, the STFT spectrograms of the improving epoch
+    included."""
     args = tparser.parse_args([
         "--platform", "cpu", "--model", "wav2vec2-tiny", "--checkpoint_path", TINY_CKPT,
         "--dataset", "synthetic", "--synthetic_samples", "48", "--batch_size", "8",
@@ -101,6 +103,26 @@ def test_entry_point_runs_on_the_cpu(tmp_path):
     assert results["finished_training"] is True and results["attack_size"] == 2.0
     for f in ("perturbation.npy", "metrics.jsonl", "train.log", "attack_state.pt", "tb"):
         assert os.path.exists(os.path.join(run_dir, f)), f
+    if artifacts.HAVE_MPL:
+        for f in ("perturbation.png", "perturbation_stft_linear.png", "perturbation_stft_log.png"):
+            assert os.path.exists(os.path.join(run_dir, f)), f
+
+
+@pytest.mark.parametrize("norm, panel", [("max_phon", "phon_projection_debug_epoch0.png"),
+                                         ("fletcher_munson", "fm_weights_epoch0.png")])
+def test_debug_plots_are_written(tmp_path, norm, panel):
+    """``--debug_plots`` is accepted and draws the reference's panel on the
+    improving epoch."""
+    if not artifacts.HAVE_MPL:
+        pytest.skip("matplotlib unavailable")
+    args = tparser.parse_args([
+        "--platform", "cpu", "--model", "wav2vec2-tiny", "--dataset", "synthetic",
+        "--synthetic_samples", "24", "--synthetic_words", "3,4", "--batch_size", "8",
+        "--num_epochs", "1", "--norm_type", norm, "--optimizer_type", "pgd",
+        "--compute_dtype", "float32", "--num_items_to_inspect", "0", "--debug_plots",
+        "--save_root", str(tmp_path)])
+    assert trun.main(args) == 0
+    assert os.path.exists(os.path.join(trun.make_save_dir(args), panel))
 
 
 def test_default_platform_without_a_gpu_fails(tmp_path):

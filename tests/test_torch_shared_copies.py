@@ -2,15 +2,20 @@
 against its original on the same inputs: the ISO 226 tables bit for bit,
 text encoding, WER through the port's own Levenshtein library, FLAC decoding
 of the golden streams through the port's own decoder library, the synthetic
-corpus, checkpoint reading, scoring and TensorBoard event files. Also: the
-port's C helpers load their libraries from ``build/paa_tpu_torch/``.
+corpus, checkpoint reading, scoring, TensorBoard event files and the
+results aggregator. Also: the port's C helpers load their libraries from
+``build/paa_tpu_torch/``.
 """
 
+import os
 from pathlib import Path
+
+import json
 
 import numpy as np
 import pytest
 
+from paa_tpu.cli import aggregate as j_aggregate
 from paa_tpu.data import datasets as j_datasets
 from paa_tpu.data import flac as j_flac
 from paa_tpu.data import synthetic as j_synthetic
@@ -21,6 +26,7 @@ from paa_tpu.ops import wer as j_wer
 from paa_tpu.train import artifacts as j_artifacts
 from paa_tpu.train import scoring as j_scoring
 from paa_tpu.train import tb_events as j_tb
+from paa_tpu_torch.cli import aggregate as t_aggregate
 from paa_tpu_torch.data import datasets as t_datasets
 from paa_tpu_torch.data import flac as t_flac
 from paa_tpu_torch.data import synthetic as t_synthetic
@@ -212,3 +218,33 @@ def test_c_helpers_load_from_the_ports_build_dir(module):
     loaded = Path(lib._name).resolve()
     assert loaded.is_relative_to(BUILD_DIR.resolve()), loaded
     assert Path(mod._C_SOURCE).resolve().is_relative_to(REPO / "paa_tpu_torch" / "csrc")
+
+
+def test_aggregate_collect_render_plot(tmp_path):
+    """Both aggregators on the same run directories: equal rows, table and
+    plot files (a finished sweep cell, an unfinished one, a failed run)."""
+    runs = {
+        "untargeted/synthetic/linf_0.0001_untargeted_pgd":
+            {"norm_type": "linf", "attack_size": 1e-4, "finished_training": True,
+             "final_test_clean": {"ctc": 9.5, "wer": 0.0},
+             "final_test_perturbed": {"ctc": 20.25, "wer": 0.5},
+             "perturbation_efficiency": {"ctc": 2.13, "wer": None}, "steps_per_sec": 3.5},
+        "untargeted/synthetic/linf_0.0003_untargeted_pgd":
+            {"norm_type": "linf", "attack_size": 3e-4, "finished_training": False,
+             "eval_score_clean": {"ctc": 9.5, "wer": 0.0},
+             "eval_score_perturbed": {"ctc": 40.0, "wer": 0.75}},
+        "targeted/synthetic/max_phon_20_targeted_adam":
+            {"norm_type": "max_phon", "attack_size": 20.0, "finished_training": False,
+             "error": "boom"},
+    }
+    for rel, r in runs.items():
+        (tmp_path / "logs" / rel).mkdir(parents=True)
+        (tmp_path / "logs" / rel / "results.json").write_text(json.dumps(r))
+    key = lambda row: row["run"]
+    got = sorted(t_aggregate.collect(str(tmp_path / "logs")), key=key)
+    want = sorted(j_aggregate.collect(str(tmp_path / "logs")), key=key)
+    assert got == want and len(got) == 3
+    assert t_aggregate.render(got) == j_aggregate.render(want)
+    t_pngs = t_aggregate.plot(got, str(tmp_path / "t"))
+    j_pngs = j_aggregate.plot(want, str(tmp_path / "j"))
+    assert [os.path.basename(p) for p in t_pngs] == [os.path.basename(p) for p in j_pngs]

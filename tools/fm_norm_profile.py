@@ -27,8 +27,8 @@ At base's p (1, 513, 626) and lv60's (1, 513, 1251), both in
     one-element PyTorch add (the floor of one kernel in a graph).
 
 Every line carries the card's name and power limit. Needs one CUDA device.
-``chip_smoke.py`` takes its K3 timers (``graph_ms``, ``device_ops``) from
-here.
+``chip_smoke.py`` takes its K3 timers (``graph_ms``, ``device_ops``) and
+its count of K3's device operations (``graph_nodes``) from here.
 """
 
 from __future__ import annotations
@@ -92,6 +92,51 @@ def graph_ms(fn, calls=100, replays=5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (calls * replays)
+
+
+# CUgraphNodeType (cuda.h); the first three are work the device runs
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
+              "event_record", "ext_semas_signal", "ext_semas_wait", "mem_alloc", "mem_free",
+              "batch_mem_op", "conditional")
+DEVICE_WORK = NODE_TYPES[:3]
+
+
+def graph_nodes(fn) -> list[str]:
+    """The type of each node of a CUDA graph that captured one call of
+    ``fn``, read with the driver's ``cuGraphGetNodes``: the device
+    operations of the call, counted without the profiler."""
+    import ctypes
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    driver = ctypes.CDLL("libcuda.so.1")
+    driver.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_size_t)]
+    driver.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+
+    def checked(rc: int, what: str) -> None:
+        if rc != 0:
+            raise RuntimeError(f"{what} returned CUresult {rc}")
+
+    checked(driver.cuGraphGetNodes(handle, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    checked(driver.cuGraphGetNodes(handle, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    kinds = []
+    kind = ctypes.c_int()
+    for node in nodes[:count.value]:
+        checked(driver.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        kinds.append(NODE_TYPES[kind.value] if kind.value < len(NODE_TYPES) else str(kind.value))
+    graph.reset()
+    return kinds
 
 
 def events_ms(fn, calls=100) -> float:
