@@ -16,7 +16,9 @@ line:
                long-clip lengths T ∈ {774, 999, 1499} with 16 heads, where
                the JAX package runs its flash kernel. K1/K2 and K3 also
                at the base sweep's shapes (phase 7's clips are longer than
-               phase 4's). K3 at base's and lv60's p, in torch.stft's
+               phase 4's), and at the pretraining batches of phase 8,
+               (32, T_pre, 12, 64) bf16 and (32, T_pre, 4, 16) f32. K3 at
+               base's and lv60's p, in torch.stft's
                layout and contiguous, must launch
                one kernel and run one device operation a call (the nodes
                of a CUDA graph of one call; torch.profiler's trace too,
@@ -34,11 +36,14 @@ line:
                16 heads), random weights from a seed, bf16: B=64 × 20 s
                (T = 999 frames) in 2 microbatches, 1 warm-up and 2 timed
                PGD train steps plus one eval step, with the launch counts.
-  6. cli     — ``python -m paa_tpu_torch.cli.run_attack`` twice: the tiny
+  6. cli     — ``python -m paa_tpu_torch.cli.run_attack``: the tiny
                checkpoint's clean test eval against the JAX package's
                recorded numbers, and lv60 on ~20 s synthetic clips; each
                writes a finite results.json and launches the kernels as
-               often as its steps ask.
+               often as its steps ask. Then the anchor on its --small_data
+               corpus twice, the second with --profile: a Chrome trace
+               with CPU events in <save_dir>/profile/, the clean scores of
+               the run without it, its perturbation within rtol 2e-3.
   7. sweep   — ``python -m paa_tpu_torch.cli.sweep`` twice: wav2vec2-base at
                full width, random weights from the seed, B=64 × ~10 s
                synthetic clips, three fletcher_munson cells for one epoch
@@ -50,6 +55,20 @@ line:
                and a 1-cell sweep under the anchor's flags, whose clean
                test scores must equal phase 6's run and whose
                perturbation.npy must match it (rtol 2e-3, atol 1e-6).
+  8. pretrain — ``python -m paa_tpu_torch.train.pretrain``: (a) wav2vec2-base
+               at full width, random weights from the seed, bf16 compute
+               and float32 parameters, B=32, 4 steps (warmup 2), one eval;
+               K1/K2 launch 12 × (steps + eval batches) and 12 × steps
+               times. The same run through ``pretrain()`` with a step
+               watcher: the weights after step 1 equal the initial ones bit
+               for bit (lr 0), after step 4 they differ, every loss is
+               finite, the step time (steps 2-4) and peak; its export,
+               loaded into a fresh model, gives the kept best weights'
+               logits exactly. (b) the tiny checkpoint's recipe (float32,
+               the WMMA route): the loss halves, the best eval WER is below
+               1, the export reproduces the test WER exactly, beside the
+               JAX record. (c) the committed checkpoint through the port's
+               ``evaluate_wer`` gives its recorded eval WER exactly.
 
 Then K1/K2's WMMA route (head dim 16) at the anchor's shape, the kernels
 line ``{"kernels": [...]}`` (per kernel and the runs it counts: launches in
@@ -72,6 +91,7 @@ import runpy
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -85,6 +105,7 @@ from paa_tpu_torch.data import synthetic
 from paa_tpu_torch.models import checkpoint_io, wav2vec2
 from paa_tpu_torch.ops import dsp, psycho, text
 from paa_tpu_torch.ops.kernels import _lib, attention, fm_norm
+from paa_tpu_torch.train import pretrain
 
 SEED = 0
 MAIN_B, MAIN_T = 64, 160_000  # bench.py's shape: batch 64 × 10 s at 16 kHz
@@ -336,6 +357,12 @@ def phase_kernels(dev) -> dict:
         MAIN_B, wav2vec2.get_config("wav2vec2-base").feat_extract_output_length(sweep_len),
         12, 64, torch.bfloat16, dev)
     at_main["fm_norm_sweep"] = check_fm(stft(sweep_len), tables, "sweep")
+    # the pretraining batches of phase 8: base (bf16, the Hopper route) and
+    # the tiny recipe (float32, the WMMA route), at their corpora's lengths
+    at_main["attention_pretrain"] = check_attention(
+        32, pretrain_frames(PRETRAIN_BASE_ARGV), 12, 64, torch.bfloat16, dev)
+    at_main["attention_pretrain_tiny"] = check_attention(
+        32, pretrain_frames(PRETRAIN_TINY_ARGV), 4, 16, torch.float32, dev)
     bad = [r for r in results + list(at_main.values()) if r["failed"]]
     check(not bad, f"kernels out of tolerance: {bad}")
     return at_main
@@ -502,14 +529,16 @@ LV60_CLI_ARGV = ["--model", "wav2vec2-large-lv60", "--dataset", "synthetic",
                  "--norm_type", "fletcher_munson", "--optimizer_type", "pgd"]
 
 
-def run_module(module: str, name: str, argv: list[str]) -> tuple[str, float, dict]:
+def run_module(module: str, name: str, argv: list[str],
+               out: str | None = None) -> tuple[str, float, dict]:
     """Run ``python -m module argv`` in this process, so that the launch
-    counters see its kernels, into a fresh save root: (save root, seconds,
-    launch counts)."""
+    counters see its kernels, into a fresh save root (or with ``--out
+    <root>/<out>``): (save root, seconds, launch counts)."""
     root = os.path.join(RUNS_DIR, name)
     shutil.rmtree(root, ignore_errors=True)
     saved_argv = sys.argv
-    sys.argv = [module, *argv, "--save_root", root]
+    where = ["--save_root", root] if out is None else ["--out", os.path.join(root, out)]
+    sys.argv = [module, *argv, *where]
     _lib.reset_launches()
     t0 = time.perf_counter()
     try:
@@ -608,7 +637,42 @@ def phase_cli(card: str) -> dict:
     check(facts["audio_len"] / 16000 > 15.5, f"cli lv60: clips of {facts['audio_len']} samples")
     check(all(math.isfinite(v) for v in values), f"cli lv60: non-finite scores {values}")
     check(launches == want, f"cli lv60: launched {launches}, want {want}")
-    return {**out, "cli_lv60": launches}
+    out["cli_lv60"] = launches
+
+    # (c) --profile: the anchor on its --small_data corpus, without the
+    # trace and with it; the trace must not change the run's numbers
+    small = ANCHOR_ARGV + ["--small_data"]
+    res, facts, launches = run_cli("anchor_small", small)
+    res_p, facts_p, launches_p = run_cli("anchor_profile", small + ["--profile"])
+    trace = os.path.join(facts_p["run_dir"], "profile", "trace.json")
+    check(os.path.exists(trace), f"cli profile: no trace at {trace}")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    trace_bytes = os.path.getsize(trace)
+    shutil.rmtree(os.path.dirname(trace))  # checked; too large to bring back
+    cpu_events = sum(e.get("cat") == "cpu_op" for e in events)
+    p_plain, p_prof = (np.load(os.path.join(f["run_dir"], "perturbation.npy"))
+                       for f in (facts, facts_p))
+    p_diff = float(np.abs(p_prof - p_plain).max())
+    p_close = bool(np.allclose(p_prof, p_plain, **ONE_CELL_TOL))
+    want = expected_cli_launches(small, facts_p, fm=False, route="")
+    emit({"phase": "cli", "run": "anchor_profile", **facts_p, "trace_bytes": trace_bytes,
+          "trace_cpu_events": cpu_events,
+          # not checked: torch.profiler on the card now and then sees no
+          # device operation (PERF.md, open questions)
+          "trace_device_events": sum(e.get("cat") == "kernel" for e in events),
+          "final_test_clean": res_p["final_test_clean"],
+          "unprofiled_final_test_clean": res["final_test_clean"],
+          "perturbation_max_abs_diff": p_diff, "tolerance": ONE_CELL_TOL,
+          "launches": launches_p, "unprofiled_launches": launches, "want_launches": want,
+          "card": card})
+    check(cpu_events > 0, "cli profile: the trace holds no CPU event")
+    for key in ("eval_score_clean", "final_test_clean"):
+        check(res_p[key] == res[key], f"cli profile: {key} {res_p[key]} against {res[key]}")
+    check(p_close, f"cli profile: perturbation differs by {p_diff}")
+    check(launches_p == launches == want, f"cli profile: launched {launches_p} and {launches}, "
+                                          f"want {want}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -720,6 +784,187 @@ def phase_sweep(card: str, main: dict, anchor: dict) -> dict:
     return {"sweep": launches, "sweep_anchor": anchor_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: victim pretraining, python -m paa_tpu_torch.train.pretrain
+# ---------------------------------------------------------------------------
+
+# (a) base at full width: 512 synthetic clips of 3-8 words, B=32, 4 steps
+PRETRAIN_BASE_ARGV = ["--model", "wav2vec2-base", "--batch_size", "32",
+                      "--synthetic_samples", "512", "--steps", "4", "--warmup_steps", "2",
+                      "--eval_every", "4"]
+# (b) the committed checkpoint's recipe (its .history.json), cut at 1000 steps
+PRETRAIN_TINY_ARGV = ["--model", "wav2vec2-tiny", "--lr", "1e-3", "--batch_size", "32",
+                      "--warmup_steps", "300", "--synthetic_samples", "2048",
+                      "--eval_every", "200", "--target_wer", "0.05", "--steps", "1000"]
+TINY_RECORD = os.path.join(ROOT, "checkpoints", "wav2vec2-tiny-synthetic.history.json")
+
+
+@functools.cache
+def pretrain_corpus(argv: tuple[str, ...]):
+    """(config, corpus) of a pretraining run's flags."""
+    cfg = pretrain.config_from_args(pretrain.create_arg_parser().parse_args(list(argv)))
+    return cfg, pretrain.build_corpus(cfg)
+
+
+def pretrain_frames(argv: list[str]) -> int:
+    """T_pre: the frames of the corpus the flags make."""
+    cfg, pipe = pretrain_corpus(tuple(argv))
+    return wav2vec2.get_config(cfg.model).feat_extract_output_length(pipe.audio_len)
+
+
+def pretrain_launches(cfg, pipe, history: dict, route: str) -> dict:
+    """What a pretraining run launches: every layer forward and backward per
+    step, forward per batch of each eval pass and of the final test pass."""
+    L = wav2vec2.get_config(cfg.model).num_hidden_layers
+    nb = lambda split: math.ceil(len(split) / cfg.batch_size)
+    steps = history["eval_step"][-1]  # the run ends at an eval
+    evals = len(history["eval_step"]) * nb(pipe.eval) + nb(pipe.test)
+    return counts(**{f"attention_fwd{route}": L * (steps + evals),
+                     f"attention_bwd{route}": L * steps})
+
+
+def run_pretrain(name: str, argv: list[str]) -> tuple[dict, dict, float, str]:
+    """The entry point as ``python -m`` runs it: (its .history.json, launch
+    counts, seconds, checkpoint path)."""
+    root, seconds, launches = run_module("paa_tpu_torch.train.pretrain", name, argv,
+                                         out="model.safetensors")
+    with open(os.path.join(root, "model.history.json")) as f:
+        record = json.load(f)
+    return record, launches, seconds, os.path.join(root, "model.safetensors")
+
+
+def fresh_model(model_name: str, state: dict, dev) -> wav2vec2.Wav2Vec2ForCTC:
+    model = wav2vec2.Wav2Vec2ForCTC(wav2vec2.get_config(model_name))
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+    return model.to(dev)
+
+
+def phase_pretrain(dev, card: str) -> dict:
+    """Returns each pretraining run's launch counts."""
+    with open(TINY_RECORD) as f:
+        jax_record = json.load(f)
+    history_keys = set(jax_record["history"])
+
+    # (a) base at full width through the entry point
+    cfg, pipe = pretrain_corpus(tuple(PRETRAIN_BASE_ARGV))
+    frames = pretrain_frames(PRETRAIN_BASE_ARGV)
+    record, launches, seconds, ckpt = run_pretrain("pretrain_base", PRETRAIN_BASE_ARGV)
+    initial = wav2vec2.init_model(wav2vec2.get_config(cfg.model), seed=cfg.seed).state_dict()
+    exported = checkpoint_io.load_safetensors(ckpt)
+    check({k: v.shape for k, v in exported.items()} == {k: tuple(v.shape)
+                                                         for k, v in initial.items()},
+          f"pretrain base: the export holds {sorted(exported)}")
+    os.remove(ckpt)  # 380 MB: too large to bring back; (a2) checks an export's logits
+    del exported
+    history = record["history"]
+    want = pretrain_launches(cfg, pipe, history, "_sm90")
+    check(set(history) == history_keys, f"pretrain base: history keys {sorted(history)}")
+    check(launches == want, f"pretrain base: launched {launches}, want {want}")
+    check(all(math.isfinite(v) for v in history["loss"] + history["eval_ctc"]),
+          f"pretrain base: non-finite loss in {history}")
+
+    # (a2) the same run through pretrain(), watched step by step
+    seen: dict = {"losses": []}
+
+    def clock(step_idx):
+        torch.cuda.synchronize()
+        seen[step_idx] = time.perf_counter()
+
+    def watch(step_idx, model, loss):
+        # steps 2-4 are timed; the weight comparisons stay outside the clock
+        seen["losses"].append(loss)
+        if step_idx == 4:
+            clock(4)
+        if step_idx in (1, 4):
+            now = model.state_dict()
+            seen[f"equal_{step_idx}"] = all(torch.equal(now[k].cpu(), v) for k, v in initial.items())
+        if step_idx == 1:
+            clock(1)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _lib.reset_launches()
+    best, lib_history = pretrain.pretrain(cfg, pipe=pipe, device=dev, on_step=watch)
+    lib_launches = dict(_lib.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(v) for v in seen["losses"]]
+    step_s = (seen[4] - seen[1]) / 3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.safetensors")
+        pretrain.export_checkpoint(best, path)
+        exported = checkpoint_io.load_safetensors(path)
+    batch = next(pipe.eval.batches(cfg.batch_size))
+    logits = [pretrain.make_logits_fn(fresh_model(cfg.model, sd, dev))(batch.audio)
+              for sd in (best, exported)]
+    logits_equal = bool(torch.equal(*logits))
+    mcfg = wav2vec2.get_config(cfg.model)
+    emit({"phase": "pretrain", "run": "base", "model": cfg.model,
+          "layers": mcfg.num_hidden_layers, "hidden": mcfg.hidden_size,
+          "heads": mcfg.num_attention_heads, "compute_dtype": mcfg.compute_dtype,
+          "param_dtype": "float32", "batch": cfg.batch_size, "audio_len": pipe.audio_len, "T_pre": frames,
+          "train": len(pipe.train), "eval": len(pipe.eval), "test": len(pipe.test),
+          "steps": cfg.steps, "warmup_steps": cfg.warmup_steps, "cli_seconds": seconds,
+          "cli_history": history, "cli_launches": launches, "want_launches": want,
+          "losses": losses, "step_s": step_s, "timed_steps": "2-4",
+          "peak_mem_bytes": peak, "peak_mem_gib": peak / 2**30,
+          "params_equal_after_step_1": seen["equal_1"],
+          "params_equal_after_step_4": seen["equal_4"],
+          "export_logits_equal": logits_equal, "launches": lib_launches, "card": card})
+    check(all(math.isfinite(v) for v in losses) and len(losses) == cfg.steps,
+          f"pretrain base: losses {losses}")
+    check(losses[0] == history["loss"][0], f"pretrain base: step 1 loss {losses[0]} against "
+                                           f"the entry point's {history['loss'][0]}")
+    check(seen["equal_1"], "pretrain base: step 1 (lr 0) changed the weights")
+    check(not seen["equal_4"], "pretrain base: 4 steps left the weights unchanged")
+    check(lib_launches == pretrain_launches(cfg, pipe, lib_history, "_sm90"),
+          f"pretrain base: pretrain() launched {lib_launches}")
+    check(logits_equal, "pretrain base: the exported weights give other logits")
+    del best, logits
+    torch.cuda.empty_cache()
+
+    # (b) tiny, the committed checkpoint's recipe
+    cfg, pipe = pretrain_corpus(tuple(PRETRAIN_TINY_ARGV))
+    record, tiny_launches, seconds, ckpt = run_pretrain("pretrain_tiny", PRETRAIN_TINY_ARGV)
+    history = record["history"]
+    want = pretrain_launches(cfg, pipe, history, "")  # float32: the WMMA route
+    model = fresh_model(cfg.model, checkpoint_io.load_safetensors(ckpt), dev)
+    reload_wer, _ = pretrain.evaluate_wer(pretrain.make_logits_fn(model), pipe.test,
+                                          cfg.batch_size)
+    best_at = history["eval_step"][history["eval_wer"].index(history["best_eval_wer"])]
+    jax_history = jax_record["history"]
+    emit({"phase": "pretrain", "run": "tiny_recipe", "config": record["config"],
+          "T_pre": pretrain_frames(PRETRAIN_TINY_ARGV), "seconds": seconds,
+          "wall_sec": history["wall_sec"], "steps_run": history["eval_step"][-1],
+          "loss_first": history["loss"][0], "loss_last": history["loss"][-1],
+          "eval_wer": history["eval_wer"], "best_eval_wer": history["best_eval_wer"],
+          "best_at_step": best_at, "test_wer": history["test_wer"],
+          "reloaded_test_wer": reload_wer,
+          "jax_record": {"best_eval_wer": jax_history["best_eval_wer"],
+                         "best_at_step": jax_history["eval_step"][-1],
+                         "test_wer": jax_history["test_wer"],
+                         "wall_sec": jax_history["wall_sec"]},
+          "launches": tiny_launches, "want_launches": want, "card": card})
+    check(set(history) == history_keys, f"pretrain tiny: history keys {sorted(history)}")
+    check(history["loss"][-1] < 0.5 * history["loss"][0], f"pretrain tiny: {history['loss']}")
+    check(history["best_eval_wer"] < 1.0, f"pretrain tiny: best eval WER {history}")
+    check(reload_wer == history["test_wer"],
+          f"pretrain tiny: reloaded test WER {reload_wer} against {history['test_wer']}")
+    check(tiny_launches == want, f"pretrain tiny: launched {tiny_launches}, want {want}")
+
+    # (c) the committed checkpoint through the port's evaluate_wer, on its
+    # own corpus: (b)'s flags make it (seed 5, 2048 clips, B=32)
+    check(all(record["config"][k] == jax_record["config"][k]
+              for k in ("model", "seed", "synthetic_samples", "batch_size")),
+          "pretrain: (b) and the committed checkpoint's corpus differ")
+    model = fresh_model(cfg.model, checkpoint_io.load_safetensors(TINY_CKPT), dev)
+    wer, ctc = pretrain.evaluate_wer(pretrain.make_logits_fn(model), pipe.eval, cfg.batch_size)
+    emit({"phase": "pretrain", "run": "committed_checkpoint", "eval_wer": wer, "eval_ctc": ctc,
+          "recorded_eval_wer": jax_history["best_eval_wer"],
+          "recorded_eval_ctc": jax_history["eval_ctc"][-1], "card": card})
+    check(wer == jax_history["best_eval_wer"],
+          f"pretrain: committed checkpoint eval WER {wer}, recorded {jax_history['best_eval_wer']}")
+    return {"pretrain_base": launches, "pretrain_tiny": tiny_launches}
+
+
 # (row name, launch counter, source, TPU kernel it replaces, runs whose
 # launches it reports, check at those runs' shapes and direction it takes
 # its numbers from). The base sweep's clips are longer than phase 4's, so
@@ -753,6 +998,14 @@ KERNELS = (
      ("anchor", "sweep_anchor"), "attention_tiny", "fwd"),
     ("attention_bwd_wmma", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
      ("anchor", "sweep_anchor"), "attention_tiny", "bwd"),
+    ("attention_fwd_pretrain", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
+     K1_TPU, ("pretrain_base",), "attention_pretrain", "fwd"),
+    ("attention_bwd_pretrain", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
+     K2_TPU, ("pretrain_base",), "attention_pretrain", "bwd"),
+    ("attention_fwd_wmma_pretrain", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu",
+     K1_TPU, ("pretrain_tiny",), "attention_pretrain_tiny", "fwd"),
+    ("attention_bwd_wmma_pretrain", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu",
+     K2_TPU, ("pretrain_tiny",), "attention_pretrain_tiny", "bwd"),
 )
 
 
@@ -797,6 +1050,8 @@ def main() -> int:
     launches.update(phase_cli(smi))
     torch.cuda.empty_cache()
     launches.update(phase_sweep(smi, main_run, launches.pop("anchor_run")))
+    torch.cuda.empty_cache()
+    launches.update(phase_pretrain(dev, smi))
     # torch.profiler now and then sees no device operation in three traces
     # (once after phases 3-7, once in phase 2): whether it still sees the
     # device is recorded here, not checked

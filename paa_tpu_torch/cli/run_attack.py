@@ -7,10 +7,14 @@ discovery, ``results.json``, metrics log and ``perturbation.npy``, and the
 same exit codes: 0 on success, 1 on a failure, which also writes a failure
 ``results.json``. It runs on the CUDA device by default and on the CPU with
 ``--platform cpu``; without a CUDA device the default run fails.
+``--profile`` traces the attack loop with ``torch.profiler`` into
+``<save_dir>/profile/trace.json`` (a Chrome trace), where the JAX CLI
+writes its ``jax.profiler`` trace.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import sys
@@ -85,6 +89,26 @@ def load_model(args, device: torch.device) -> wav2vec2.Wav2Vec2ForCTC:
     return model.to(device)
 
 
+@contextlib.contextmanager
+def profile_run(save_dir: str, device: torch.device):
+    """Trace the block with ``torch.profiler`` (CPU, and CUDA on the card)
+    and write ``<save_dir>/profile/trace.json``, also when the block
+    raises."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        trace = os.path.join(save_dir, "profile", "trace.json")
+        os.makedirs(os.path.dirname(trace), exist_ok=True)
+        prof.export_chrome_trace(trace)
+        logging.getLogger("paa_tpu").info("profiler trace written to %s", trace)
+
+
 def main(args) -> int:
     save_dir = make_save_dir(args)
     os.makedirs(save_dir, exist_ok=True)
@@ -105,15 +129,16 @@ def main(args) -> int:
         if args.resume_from:
             log.info("Resuming perturbation from: %s", args.resume_from)
             init_p = checkpoint.load_perturbation(args.resume_from)
-        loop.run_attack(
-            cfg, model, pipe, save_dir,
-            cparams=cparams,
-            num_items_to_inspect=args.num_items_to_inspect,
-            resume=not args.no_resume and not args.small_data,
-            init_p=init_p,
-            debug_plots=args.debug_plots,
-            tensorboard=args.tensorboard,
-        )
+        with profile_run(save_dir, device) if args.profile else contextlib.nullcontext():
+            loop.run_attack(
+                cfg, model, pipe, save_dir,
+                cparams=cparams,
+                num_items_to_inspect=args.num_items_to_inspect,
+                resume=not args.no_resume and not args.small_data,
+                init_p=init_p,
+                debug_plots=args.debug_plots,
+                tensorboard=args.tensorboard,
+            )
         return 0
     except Exception as e:  # the failure report
         log.exception("Run failed with an exception: %s", e)

@@ -93,10 +93,14 @@ def create_sweep_parser() -> argparse.ArgumentParser:
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     """Parse ``argv``; a flag the port refuses is a usage error (exit code 2),
-    as in ``cli/parser.py:parse_args``."""
+    as in ``cli/parser.py:parse_args``. ``--profile`` too: the JAX sweep
+    accepts it and never traces."""
     parser = create_sweep_parser()
     args = parser.parse_args(argv)
     refused = parser_lib.refusals(args)
+    if args.profile:
+        refused.append("--profile: the sweep does not trace; profile one cell with "
+                       "cli.run_attack --profile")
     if refused:
         parser.error("; ".join(refused))
     return args

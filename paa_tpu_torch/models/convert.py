@@ -1,13 +1,17 @@
-"""``paa_tpu``'s Flax parameter tree → the port's state dict.
+"""``paa_tpu``'s Flax parameter tree → the port's state dict, and the
+port's state dict → an HF-layout checkpoint.
 
 The port's module tree uses HF's state-dict names, so weights made by the
 JAX package (``paa_tpu.models.wav2vec2.init_params``, its converter, its
-pretraining) carry across with this one mapping. It is the layout of
-``paa_tpu.models.convert.export_hf_state_dict``, written again here because
-that module imports flax; a test holds the two equal key for key.
+pretraining) carry across with :func:`params_from_jax`, and the port's own
+weights export with :func:`export_hf_state_dict` under the names
+``paa_tpu.models.convert.export_hf_state_dict`` writes. Both are written
+again here because that module imports flax; tests hold them equal to it.
 """
 
 from __future__ import annotations
+
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -70,3 +74,12 @@ def params_from_jax(params: dict, cfg: Wav2Vec2Config) -> dict[str, torch.Tensor
 
     linear("lm_head", params["lm_head"])
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def export_hf_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """A ``Wav2Vec2ForCTC`` state dict → ``{HF name: float32 numpy}``, the
+    layout ``paa_tpu.models.convert.export_hf_state_dict`` writes: the
+    modern weight-norm names (``parametrizations.weight.original0/1``), no
+    ``masked_spec_embed``. Every array is a copy on the host."""
+    return {k: v.detach().to("cpu", torch.float32, copy=True).numpy()
+            for k, v in state_dict.items() if not k.endswith("masked_spec_embed")}

@@ -9,12 +9,14 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from paa_tpu.cli import parser as jparser
 from paa_tpu.cli import run_attack as jrun
 from paa_tpu_torch.cli import parser as tparser
 from paa_tpu_torch.cli import run_attack as trun
+from paa_tpu_torch.cli import sweep as tsweep
 from paa_tpu_torch.train import artifacts
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -71,7 +73,7 @@ def test_same_argv_same_config(argv):
     ["--tp", "2"],
     ["--conv_impl", "hybrid"],
     ["--device_probe_timeout", "60"],
-    ["--profile"],
+    ["--conv_impl", "im2col"],
     ["--conv_impl", "pairdot"],
     ["--platform", "tpu"],
 ])
@@ -123,6 +125,40 @@ def test_debug_plots_are_written(tmp_path, norm, panel):
         "--save_root", str(tmp_path)])
     assert trun.main(args) == 0
     assert os.path.exists(os.path.join(trun.make_save_dir(args), panel))
+
+
+PROFILE_ARGV = ["--platform", "cpu", "--model", "wav2vec2-tiny", "--checkpoint_path", TINY_CKPT,
+                "--dataset", "synthetic", "--synthetic_samples", "48", "--small_data",
+                "--batch_size", "8", "--num_epochs", "1", "--optimizer_type", "pgd",
+                "--num_items_to_inspect", "0"]
+
+
+def test_profile_writes_a_trace_and_leaves_the_run_unchanged(tmp_path):
+    """``--profile`` traces the attack loop into <save_dir>/profile/ (a
+    Chrome trace with CPU events); results.json, its wall-clock rate
+    aside, and the perturbation equal the same run's without it."""
+    runs = {}
+    for name, extra in (("plain", []), ("profiled", ["--profile"])):
+        args = tparser.parse_args(PROFILE_ARGV + extra + ["--save_root", str(tmp_path / name)])
+        assert trun.main(args) == 0
+        runs[name] = trun.make_save_dir(args)
+    trace = os.path.join(runs["profiled"], "profile", "trace.json")
+    events = json.loads(open(trace).read())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    assert not os.path.exists(os.path.join(runs["plain"], "profile"))
+    results = {k: json.loads(open(os.path.join(d, "results.json")).read()) for k, d in runs.items()}
+    for r in results.values():
+        assert r.pop("steps_per_sec") > 0
+    assert results["profiled"] == results["plain"]
+    p = {k: np.load(os.path.join(d, "perturbation.npy")) for k, d in runs.items()}
+    assert np.array_equal(p["profiled"], p["plain"])
+
+
+def test_sweep_refuses_profile(capsys):
+    """The JAX sweep accepts --profile and never traces; the port's refuses it."""
+    with pytest.raises(SystemExit) as e:
+        tsweep.parse_args(["--profile"])
+    assert e.value.code == 2 and "--profile" in capsys.readouterr().err
 
 
 def test_default_platform_without_a_gpu_fails(tmp_path):

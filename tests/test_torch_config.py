@@ -82,7 +82,8 @@ def test_port_imports_no_jax():
         "need = {'paa_tpu_torch.cli.run_attack', 'paa_tpu_torch.cli.parser',\n"
         "        'paa_tpu_torch.train.loop', 'paa_tpu_torch.train.checkpoint',\n"
         "        'paa_tpu_torch.data.pipeline', 'paa_tpu_torch.cli.sweep',\n"
-        "        'paa_tpu_torch.cli.aggregate', 'paa_tpu_torch.cli.launch_grid'}\n"
+        "        'paa_tpu_torch.cli.aggregate', 'paa_tpu_torch.cli.launch_grid',\n"
+        "        'paa_tpu_torch.train.pretrain'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('paa_tpu_torch')]))\n"
     )
