@@ -17,7 +17,10 @@ line:
                the JAX package runs its flash kernel. K1/K2 and K3 also
                at the base sweep's shapes (phase 7's clips are longer than
                phase 4's), and at the pretraining batches of phase 8,
-               (32, T_pre, 12, 64) bf16 and (32, T_pre, 4, 16) f32. K3 at
+               (32, T_pre, 12, 64) bf16 and (32, T_pre, 4, 16) f32, and at
+               phase 9's ranks' shapes, (32, 499, 12, 64) and (16, 499, 6,
+               64) bf16 (the anchor's ranks', (16, T, 4, 16) and (32, T, 2,
+               16) bf16, at the end, with the anchor's T). K3 at
                base's and lv60's p, in torch.stft's
                layout and contiguous, must launch
                one kernel and run one device operation a call (the nodes
@@ -69,6 +72,24 @@ line:
                1, the export reproduces the test WER exactly, beside the
                JAX record. (c) the committed checkpoint through the port's
                ``evaluate_wer`` gives its recorded eval WER exactly.
+  9. parallel — data and tensor parallelism, ``torchrun --standalone
+               --nproc_per_node 2`` of this script's worker mode, the 2 ranks
+               sharing the one card over gloo (each rank writes its record
+               and launch counts to a JSON file; a launch is killed after
+               PAR_TIMEOUT_S): (a) dp=2 at base's full width, B=64 × 10 s,
+               32 rows a rank, and (b) tp=2, B=16, 6 heads and 1536 FFN
+               columns a rank: ∂loss/∂p and one PGD step from p = 0 against
+               the one-device step on this card (loss, gradient and PGD
+               signs within PAR_TOL), p bit-equal on the ranks, each rank's
+               K1/K2/K3 launches as computed, its step time and peak;
+               (c) the CLI anchor through ``paa_tpu_torch.cli.run_attack``
+               with dp=2 (clean test scores equal phase 6's) and with
+               ``--tp 2`` (within phase 6's anchor tolerance: the split
+               heads round apart in bf16), perturbed scores beside phase
+               6's; (d) a 2-cell sweep through ``paa_tpu_torch.cli.sweep``,
+               one cell a rank, against the same sweep in one process.
+               Its times are of two processes sharing one card over gloo,
+               not scaling numbers.
 
 Then K1/K2's WMMA route (head dim 16) at the anchor's shape, the kernels
 line ``{"kernels": [...]}`` (per kernel and the runs it counts: launches in
@@ -105,6 +126,7 @@ from paa_tpu_torch.data import synthetic
 from paa_tpu_torch.models import checkpoint_io, wav2vec2
 from paa_tpu_torch.ops import dsp, psycho, text
 from paa_tpu_torch.ops.kernels import _lib, attention, fm_norm
+from paa_tpu_torch.parallel import mesh as mesh_lib, tp as tp_lib
 from paa_tpu_torch.train import pretrain
 
 SEED = 0
@@ -363,6 +385,12 @@ def phase_kernels(dev) -> dict:
         32, pretrain_frames(PRETRAIN_BASE_ARGV), 12, 64, torch.bfloat16, dev)
     at_main["attention_pretrain_tiny"] = check_attention(
         32, pretrain_frames(PRETRAIN_TINY_ARGV), 4, 16, torch.float32, dev)
+    # phase 9's ranks: dp=2 holds 32 of base's 64 rows, tp=2 six of its 12
+    # heads at B=16
+    at_main["attention_dp"] = check_attention(PAR_DP_B // PAR_RANKS, 499, 12, 64,
+                                              torch.bfloat16, dev)
+    at_main["attention_tp"] = check_attention(PAR_TP_B, 499, 12 // PAR_RANKS, 64,
+                                              torch.bfloat16, dev)
     bad = [r for r in results + list(at_main.values()) if r["failed"]]
     check(not bad, f"kernels out of tolerance: {bad}")
     return at_main
@@ -439,6 +467,16 @@ def phase_tiny(dev) -> None:
 # ---------------------------------------------------------------------------
 
 
+def full_width_batch(B: int, T: int, dev) -> list:
+    """The full-width runs' batch: audio N(0, 0.1²) from SEED, one
+    sentence's labels on every row, all rows real."""
+    rng = np.random.default_rng(SEED)
+    audio = torch.from_numpy(rng.standard_normal((B, T)).astype(np.float32) * 0.1).to(dev)
+    labels, pads = (torch.from_numpy(a).to(dev) for a in
+                    text.encode_batch(["the quick brown fox jumps over the lazy dog"] * B))
+    return [audio, labels, pads, torch.ones(B, device=dev)]
+
+
 def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
                      timed_steps: int, card: str) -> dict:
     """One attack configuration at full width: random weights from SEED,
@@ -453,11 +491,7 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
                        accum_steps=accum, model_name=preset)
     tables = psycho.build_tables(cfg, dev)
     cparams = ConstraintParams.create(device=dev)
-    rng = np.random.default_rng(SEED)
-    audio = torch.from_numpy(rng.standard_normal((B, T)).astype(np.float32) * 0.1).to(dev)
-    labels, pads = (torch.from_numpy(a).to(dev) for a in
-                    text.encode_batch(["the quick brown fox jumps over the lazy dog"] * B))
-    weights = torch.ones(B, device=dev)
+    audio, labels, pads, weights = full_width_batch(B, T, dev)
     p = torch.zeros((1, T), device=dev)
     opt = optimizers.init_opt_state(cfg, p)
     train = step.make_train_step(cfg, model, tables)
@@ -620,6 +654,7 @@ def phase_cli(card: str) -> dict:
     check(wer_abs <= ANCHOR_TOL["wer_abs"], f"cli anchor: clean WER {clean['wer']}")
     check(launches == want, f"cli anchor: launched {launches}, want {want}")
     out = {"anchor": launches, "anchor_run": {"run_dir": facts["run_dir"], "final_test_clean": clean,
+                                              "final_test_perturbed": res["final_test_perturbed"],
                                               "audio_len": facts["audio_len"]},
            "anchor_frames":
            wav2vec2.get_config("wav2vec2-tiny").feat_extract_output_length(facts["audio_len"])}
@@ -965,6 +1000,279 @@ def phase_pretrain(dev, card: str) -> dict:
     return {"pretrain_base": launches, "pretrain_tiny": tiny_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: data and tensor parallelism, 2 ranks under torchrun
+# ---------------------------------------------------------------------------
+
+# The machine has one card: the 2 ranks share it, so the process group is
+# gloo (parallel/mesh.py's backend rule) and every collective is staged
+# through the host. Its times are of two processes sharing one card over
+# gloo, not scaling numbers.
+PAR_RANKS = 2
+PAR_TIMEOUT_S = 300  # each torchrun launch, and the ranks' process group
+PAR_DP_B, PAR_TP_B = 64, 16  # (a) 32 rows a rank; (b) gloo's host-staged reduces kept small
+# A sharded bf16 step against the one-device step on this card: the split
+# batch and the split heads round at other places (other cuBLAS tiles for
+# half the rows or heads; tp's partial sums rounded to bf16, reduced in
+# float32 and rounded again), and the loss and ∂loss/∂p sum in another
+# order. Measured on the H100 (PERF.md, PR 9): loss 8.0e-5 (dp) and 4.3e-4
+# (tp) relative, ∂loss/∂p 6.2e-3 and 9.0e-3 of its largest value, PGD signs
+# 99.87 % and 99.73 % equal; the tolerances leave 3-5× of that.
+PAR_TOL = {"loss_rel": 2e-3, "grad_rel": 3e-2, "sign_agreement_min": 0.99}
+
+
+def run_ranks(kind: str, out_dir: str, extra: list[str]) -> tuple[list[dict], float]:
+    """``torchrun --standalone --nproc_per_node 2 chip_smoke.py --worker
+    kind out_dir extra``: (each rank's record, seconds). The launch and its
+    ranks run in their own process group, killed at PAR_TIMEOUT_S."""
+    os.makedirs(out_dir, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(PAR_RANKS), os.path.join(ROOT, "chip_smoke.py"),
+           "--worker", kind, out_dir, *extra]
+    t0 = time.perf_counter()
+    with open(os.path.join(out_dir, "torchrun.log"), "w") as log:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            code = proc.wait(timeout=PAR_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            code = "timeout"
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "torchrun.log")) as f:
+        tail = f.read()[-4000:]
+    check(code == 0, f"parallel {kind}: torchrun exited {code}:\n{tail}")
+    records = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(out_dir, f"{kind}_rank{r}.json")) as f:
+            records.append(json.load(f))
+    return records, seconds
+
+
+def worker(kind: str, out_dir: str, extra: list[str]) -> int:
+    """One rank of ``run_ranks``: ``steps`` runs (a) and (b); ``cli`` runs
+    ``python -m extra[1] extra[2:]`` (after ``--``) in this process. Writes
+    its record, with its launch counts, to ``<out_dir>/<kind>_rank<r>.json``."""
+    rank = int(os.environ["RANK"])
+    if kind == "steps":
+        record = worker_steps(out_dir, rank)
+    else:
+        module, argv = extra[1], extra[2:]
+        _lib.reset_launches()
+        saved = sys.argv
+        sys.argv = [module, *argv]
+        try:
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        finally:
+            sys.argv = saved
+        record = {"code": code, "launches": dict(_lib.launches)}
+    record["jax_modules"] = sorted(m for m in sys.modules
+                                   if m.split(".")[0] in ("jax", "flax", "optax", "paa_tpu"))
+    with open(os.path.join(out_dir, f"{kind}_rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    return 0 if record.get("code", 0) == 0 else 1
+
+
+def par_model(dev):
+    """Phase 4's model: base at full width from SEED, bf16 storage."""
+    mcfg = wav2vec2.get_config("wav2vec2-base")
+    return wav2vec2.init_model(mcfg, seed=SEED).cast_param_storage(torch.bfloat16).to(dev)
+
+
+PAR_CFG = AttackConfig(norm_type="fletcher_munson", optimizer_type="pgd", lr=1e-4,
+                       model_name="wav2vec2-base")
+
+
+def worker_steps(out_dir: str, rank: int) -> dict:
+    """(a) dp=2 at B=64 and (b) tp=2 at B=16: ∂loss/∂p at p = 0, then two
+    sharded PGD steps from p = 0, the second timed; launches counted from
+    the first call; p and the gradient saved for the parent."""
+    import torch.distributed as dist
+
+    dev = runtime.require_cuda()
+    mesh_lib.init_process_group(dev, timeout_s=PAR_TIMEOUT_S)
+    full = par_model(dev)
+    tables = psycho.build_tables(PAR_CFG, dev)
+    cparams = ConstraintParams.create(device=dev)
+    record = {"backend": dist.get_backend(), "device": str(dev)}
+    for name, tp_size, B in (("dp", 1, PAR_DP_B), ("tp", PAR_RANKS, PAR_TP_B)):
+        batch = full_width_batch(B, MAIN_T, dev)
+        mesh = mesh_lib.decide_mesh(tp_size, B)
+        model = tp_lib.shard_model(full, mesh)
+        train = step.make_sharded_step(PAR_CFG, model, tables, mesh)
+        p0 = torch.zeros((1, MAIN_T), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _lib.reset_launches()
+        loss, _, grad = step._grad_fn(model, PAR_CFG, mesh)(p0, *batch)
+        p1, _, m = train(p0, None, *batch, cparams, PAR_CFG.lr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train(p0, None, *batch, cparams, PAR_CFG.lr)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        torch.save({"grad": grad.cpu(), "p": p1.cpu()},
+                   os.path.join(out_dir, f"{name}_rank{rank}.pt"))
+        record[name] = {"mesh": mesh.shape, "coords": mesh.coords, "loss": float(loss),
+                        "step_loss": float(m.ctc_loss), "step_s": step_s,
+                        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                        "launches": dict(_lib.launches),
+                        "heads": model.wav2vec2.encoder.layers[0].attention.heads}
+        del model, train, batch, grad, p1
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return record
+
+
+def one_device_reference(dev, B: int) -> dict:
+    """The one-device step on this card at B rows: ∂loss/∂p at p = 0 and
+    the p of one PGD step from p = 0."""
+    model = par_model(dev)
+    batch = full_width_batch(B, MAIN_T, dev)
+    p0 = torch.zeros((1, MAIN_T), device=dev)
+    loss, _, grad = step._grad_and_metrics(model, PAR_CFG, p0, *batch)
+    train = step.make_train_step(PAR_CFG, model, psycho.build_tables(PAR_CFG, dev))
+    p1, _, m = train(p0, None, *batch, ConstraintParams.create(device=dev), PAR_CFG.lr)
+    out = {"loss": float(loss), "step_loss": float(m.ctc_loss), "grad": grad.cpu(),
+           "p": p1.cpu()}
+    del model, batch, grad, p1
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel(dev, card: str, anchor: dict) -> dict:
+    """Returns the launch counts of its runs, summed over the ranks."""
+    t_phase = time.perf_counter()
+    root = os.path.join(RUNS_DIR, "parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    L = wav2vec2.get_config("wav2vec2-base").num_hidden_layers
+    out = {}
+
+    # (a) dp=2 and (b) tp=2 at full width against the one-device step
+    refs = {"dp": one_device_reference(dev, PAR_DP_B), "tp": one_device_reference(dev, PAR_TP_B)}
+    records, seconds = run_ranks("steps", root, [])
+    # per rank: ∂loss/∂p and two steps, each every layer forward and
+    # backward (bf16, head dim 64: the wgmma route), each step one K3
+    want = counts(attention_fwd_sm90=3 * L, attention_bwd_sm90=3 * L, fm_norm=2)
+    for name, B in (("dp", PAR_DP_B), ("tp", PAR_TP_B)):
+        ref = refs[name]
+        saved = [torch.load(os.path.join(root, f"{name}_rank{r}.pt"), weights_only=True)
+                 for r in range(PAR_RANKS)]
+        g, g1 = saved[0]["grad"], ref["grad"]
+        loss = records[0][name]["loss"]
+        result = {
+            "loss": loss, "one_device_loss": ref["loss"],
+            "loss_rel_err": abs(loss - ref["loss"]) / abs(ref["loss"]),
+            "grad_max_rel_err": float((g - g1).abs().max() / g1.abs().max()),
+            "pgd_sign_agreement": float((torch.sign(g) == torch.sign(g1)).float().mean()),
+            "p_max_abs_diff": float((saved[0]["p"] - ref["p"]).abs().max()),
+            "p_bit_equal_across_ranks": all(torch.equal(s["p"], saved[0]["p"]) for s in saved),
+            "grad_bit_equal_across_ranks": all(torch.equal(s["grad"], g) for s in saved),
+        }
+        ranks = [records[r][name] for r in range(PAR_RANKS)]
+        emit({"phase": "parallel", "run": name, "model": "wav2vec2-base", "batch": B,
+              "samples": MAIN_T, "ranks": PAR_RANKS, "mesh": ranks[0]["mesh"],
+              "coords": [x["coords"] for x in ranks],
+              "heads_per_rank": ranks[0]["heads"], "backend": records[0]["backend"],
+              **result, "step_s": [x["step_s"] for x in ranks],
+              "peak_mem_bytes": [x["peak_mem_bytes"] for x in ranks],
+              "launches": [x["launches"] for x in ranks], "want_launches_per_rank": want,
+              "tolerance": PAR_TOL, "launch_seconds": seconds, "card": card,
+              "timing": "two processes sharing one card over gloo; not a scaling number"})
+        check(records[0]["backend"] == "gloo", f"parallel: backend {records[0]['backend']}")
+        check(result["loss_rel_err"] <= PAR_TOL["loss_rel"], f"parallel {name}: loss {result}")
+        check(result["grad_max_rel_err"] <= PAR_TOL["grad_rel"], f"parallel {name}: grad {result}")
+        check(result["pgd_sign_agreement"] >= PAR_TOL["sign_agreement_min"],
+              f"parallel {name}: signs {result}")
+        check(result["p_bit_equal_across_ranks"], f"parallel {name}: p differs between ranks")
+        check(all(x["launches"] == want for x in ranks),
+              f"parallel {name}: launched {[x['launches'] for x in ranks]}, want {want} a rank")
+        check(ranks[0]["heads"] == (12 if name == "dp" else 12 // PAR_RANKS),
+              f"parallel {name}: {ranks[0]['heads']} heads a rank")
+        out[f"par_{name}"] = {k: sum(x["launches"][k] for x in ranks) for k in want}
+
+    # (c) the CLI anchor, dp=2 and --tp 2, against phase 6's run
+    for name, extra in (("cli_dp", []), ("cli_tp", ["--tp", str(PAR_RANKS)])):
+        save_root = os.path.join(RUNS_DIR, name)
+        shutil.rmtree(save_root, ignore_errors=True)
+        argv = ANCHOR_ARGV + extra + ["--num_epochs", "1", "--num_items_to_inspect", "0",
+                                      "--no_resume", "--save_root", save_root]
+        records, seconds = run_ranks("cli", os.path.join(root, name),
+                                     ["--", "paa_tpu_torch.cli.run_attack", *argv])
+        run_dir = [d for d, _, files in os.walk(save_root) if "results.json" in files][0]
+        with open(os.path.join(run_dir, "results.json")) as f:
+            res = json.load(f)
+        facts = run_facts(name, os.path.join(run_dir, "train.log"),
+                          os.path.join(run_dir, "metrics.jsonl"))
+        del facts["metrics"]
+        want = expected_cli_launches(ANCHOR_ARGV, facts, fm=False, route="")
+        clean = res["final_test_clean"]
+        emit({"phase": "parallel", "run": name, "ranks": PAR_RANKS, **facts,
+              "clean_tolerance": "equal" if name == "cli_dp" else ANCHOR_TOL,
+              "final_test_clean": clean, "anchor_final_test_clean": anchor["final_test_clean"],
+              "final_test_perturbed": res["final_test_perturbed"],
+              "anchor_final_test_perturbed": anchor["final_test_perturbed"],
+              "launches": [r["launches"] for r in records], "want_launches_per_rank": want,
+              "launch_seconds": seconds, "card": card})
+        check(res.get("finished_training") is True, f"parallel {name}: the run did not finish")
+        if name == "cli_dp":  # each row's bf16 forward is the one-device row's
+            check(clean == anchor["final_test_clean"],
+                  f"parallel {name}: clean test {clean} against phase 6's "
+                  f"{anchor['final_test_clean']}")
+        else:  # the split heads' bf16 partial sums round apart: phase 6's tolerance
+            ref = anchor["final_test_clean"]
+            check(abs(clean["ctc"] - ref["ctc"]) / ref["ctc"] <= ANCHOR_TOL["ctc_rel"]
+                  and abs(clean["wer"] - ref["wer"]) <= ANCHOR_TOL["wer_abs"],
+                  f"parallel {name}: clean test {clean} against phase 6's {ref}, "
+                  f"tolerance {ANCHOR_TOL}")
+        check(all(r["launches"] == want for r in records),
+              f"parallel {name}: launched {[r['launches'] for r in records]}, want {want} a rank")
+        check(all(r["jax_modules"] == [] for r in records), f"parallel {name}: JAX imported")
+        out[name] = {k: sum(r["launches"][k] for r in records) for k in want}
+
+    # (d) a 2-cell sweep, one cell a rank, against the same sweep in one process
+    argv = ANCHOR_ARGV + ["--norms", "max_phon", "--grid", json.dumps({"max_phon": [20.0, 30.0]})]
+    one, _, _, _ = run_sweep("sweep_two_cells", argv)
+    save_root = os.path.join(RUNS_DIR, "sweep_two_ranks")
+    shutil.rmtree(save_root, ignore_errors=True)
+    records, seconds = run_ranks("cli", os.path.join(root, "sweep"),
+                                 ["--", "paa_tpu_torch.cli.sweep", *argv, *SWEEP_FLAGS,
+                                  "--save_root", save_root])
+    with open(os.path.join(save_root, "sweep_results.json")) as f:
+        two = json.load(f)["max_phon"]
+    first = two["cells"][0]["dir"]
+    facts = run_facts("sweep_two_ranks", os.path.join(save_root, "sweep.log"),
+                      os.path.join(first, "metrics.jsonl"))
+    del facts["metrics"]
+    want = expected_cli_launches(argv, facts, fm=False, route="", cells=1)  # one cell a rank
+    keys = ("size", "best_epoch", "test_clean_ctc", "test_clean_wer", "test_pert_ctc",
+            "test_pert_wer", "final_ctc")
+    cells = []
+    for got, ref in zip(two["cells"], one["max_phon"]["cells"]):
+        p_got, p_ref = (np.load(os.path.join(c["dir"], "perturbation.npy")) for c in (got, ref))
+        cells.append({"two_ranks": {k: got[k] for k in keys}, "one_process": {k: ref[k] for k in keys},
+                      "perturbation_max_abs_diff": float(np.abs(p_got - p_ref).max()),
+                      "perturbation_within_tol": bool(np.allclose(p_got, p_ref, **ONE_CELL_TOL))})
+    emit({"phase": "parallel", "run": "sweep", "ranks": PAR_RANKS, "mesh": two["mesh"],
+          "cells": cells, "tolerance": ONE_CELL_TOL, "launches": [r["launches"] for r in records],
+          "want_launches_per_rank": want, "launch_seconds": seconds, "card": card})
+    check(two["mesh"] == "(sweep=2, data=1)", f"parallel sweep: mesh {two['mesh']}")
+    for c in cells:
+        check(c["two_ranks"]["test_clean_ctc"] == c["one_process"]["test_clean_ctc"]
+              and c["two_ranks"]["test_clean_wer"] == c["one_process"]["test_clean_wer"],
+              f"parallel sweep: clean scores {c}")
+        check(c["perturbation_within_tol"], f"parallel sweep: perturbation {c}")
+    check(all(r["launches"] == want for r in records),
+          f"parallel sweep: launched {[r['launches'] for r in records]}, want {want} a rank")
+    out["sweep_two_ranks"] = {k: sum(r["launches"][k] for r in records) for k in want}
+    emit({"phase": "parallel", "wall_s": time.perf_counter() - t_phase, "card": card})
+    return out
+
+
 # (row name, launch counter, source, TPU kernel it replaces, runs whose
 # launches it reports, check at those runs' shapes and direction it takes
 # its numbers from). The base sweep's clips are longer than phase 4's, so
@@ -995,9 +1303,9 @@ KERNELS = (
     ("flash_attention_bwd", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
      K4_TPU.format("backward"), ("lv60",), "attention_long", "bwd"),
     ("attention_fwd_wmma", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
-     ("anchor", "sweep_anchor"), "attention_tiny", "fwd"),
+     ("anchor", "sweep_anchor", "sweep_two_ranks"), "attention_tiny", "fwd"),
     ("attention_bwd_wmma", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
-     ("anchor", "sweep_anchor"), "attention_tiny", "bwd"),
+     ("anchor", "sweep_anchor", "sweep_two_ranks"), "attention_tiny", "bwd"),
     ("attention_fwd_pretrain", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
      K1_TPU, ("pretrain_base",), "attention_pretrain", "fwd"),
     ("attention_bwd_pretrain", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
@@ -1006,6 +1314,27 @@ KERNELS = (
      K1_TPU, ("pretrain_tiny",), "attention_pretrain_tiny", "fwd"),
     ("attention_bwd_wmma_pretrain", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu",
      K2_TPU, ("pretrain_tiny",), "attention_pretrain_tiny", "bwd"),
+    ("fm_norm_lv60", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU, ("lv60",),
+     "fm_norm_lv60", None),
+    # phase 9: each rank's shapes; the 2-rank sweep runs the anchor's shape
+    ("attention_fwd_dp", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
+     K1_TPU, ("par_dp",), "attention_dp", "fwd"),
+    ("attention_bwd_dp", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
+     K2_TPU, ("par_dp",), "attention_dp", "bwd"),
+    ("attention_fwd_tp", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
+     K1_TPU, ("par_tp",), "attention_tp", "fwd"),
+    ("attention_bwd_tp", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
+     K2_TPU, ("par_tp",), "attention_tp", "bwd"),
+    ("fm_norm_parallel", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU, ("par_dp", "par_tp"),
+     "fm_norm", None),
+    ("attention_fwd_wmma_dp", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
+     ("cli_dp",), "attention_tiny_dp", "fwd"),
+    ("attention_bwd_wmma_dp", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
+     ("cli_dp",), "attention_tiny_dp", "bwd"),
+    ("attention_fwd_wmma_tp", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
+     ("cli_tp",), "attention_tiny_tp", "fwd"),
+    ("attention_bwd_wmma_tp", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
+     ("cli_tp",), "attention_tiny_tp", "bwd"),
 )
 
 
@@ -1029,6 +1358,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--worker"]:  # one rank of phase 9
+        return worker(sys.argv[2], sys.argv[3], sys.argv[4:])
     dev = runtime.require_cuda()
 
     t0 = time.perf_counter()
@@ -1049,9 +1380,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches.update(phase_cli(smi))
     torch.cuda.empty_cache()
-    launches.update(phase_sweep(smi, main_run, launches.pop("anchor_run")))
+    anchor = launches.pop("anchor_run")
+    launches.update(phase_sweep(smi, main_run, anchor))
     torch.cuda.empty_cache()
     launches.update(phase_pretrain(dev, smi))
+    torch.cuda.empty_cache()
+    launches.update(phase_parallel(dev, smi, anchor))
     # torch.profiler now and then sees no device operation in three traces
     # (once after phases 3-7, once in phase 2): whether it still sees the
     # device is recorded here, not checked
@@ -1060,9 +1394,15 @@ def main() -> int:
     emit({"phase": "profiler_probe", "device_ops": fm_profile.device_ops(
         lambda: fm_norm.fm_weighted_power_sum(spec, tables))})
     # the WMMA route at the anchor's shape: its 32 clips, 4 heads of 16
-    at_main["attention_tiny"] = check_attention(32, launches.pop("anchor_frames"), 4, 16,
-                                                torch.bfloat16, dev)
-    check(not at_main["attention_tiny"]["failed"], "kernels: the anchor's shape")
+    frames = launches.pop("anchor_frames")
+    at_main["attention_tiny"] = check_attention(32, frames, 4, 16, torch.bfloat16, dev)
+    # phase 9's anchor runs: dp=2 holds 16 of its 32 rows, tp=2 two of its 4 heads
+    at_main["attention_tiny_dp"] = check_attention(32 // PAR_RANKS, frames, 4, 16,
+                                                   torch.bfloat16, dev)
+    at_main["attention_tiny_tp"] = check_attention(32, frames, 4 // PAR_RANKS, 16,
+                                                   torch.bfloat16, dev)
+    for name in ("attention_tiny", "attention_tiny_dp", "attention_tiny_tp"):
+        check(not at_main[name]["failed"], f"kernels: the anchor's shape ({name})")
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -16,10 +16,12 @@ into a usage error):
     runs on the card; ``--no_pallas_fm`` is refused;
   * ``--profile``: ``run_attack`` traces the run with ``torch.profiler``
     into ``<save_dir>/profile/``; the sweep refuses it;
+  * ``--tp``: Megatron tensor parallelism over the ranks ``torchrun``
+    starts (``parallel/``); it must divide the rank count, as in the
+    reference (``parallel/mesh.py:decide_mesh`` says so at run time);
   * ``--no_remat`` and ``--no_device_cache`` state what the port does;
-    ``--remat``, ``--remat_policy``, ``--device_cache``, ``--tp`` > 1, a
-    ``--conv_impl`` other than ``conv`` and ``--device_probe_timeout``
-    are refused.
+    ``--remat``, ``--remat_policy``, ``--device_cache``, a ``--conv_impl``
+    other than ``conv`` and ``--device_probe_timeout`` are refused.
 
 It also turns parsed flags into what a run is built from: the attack
 config, the constraint params and the data pipeline.
@@ -142,7 +144,10 @@ def create_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--accum_steps", type=int, default=1,
                         help="split each batch into this many microbatches, summing the "
                              "perturbation gradients (caps device memory at a microbatch)")
-    parser.add_argument("--tp", type=int, default=1, help="tensor parallelism; only 1 is ported")
+    parser.add_argument("--tp", type=int, default=1,
+                        help="tensor-parallel size over the torchrun ranks (Megatron layout: "
+                             "q/k/v and FFN-in column-split, out and FFN-out row-split); the "
+                             "rest of the ranks split the batch")
     parser.add_argument("--use_pallas_fm", action="store_true", default=None,
                         help="accepted: the Fletcher-Munson kernel always runs on the card")
     parser.add_argument("--no_pallas_fm", action="store_true",
@@ -185,8 +190,6 @@ def refusals(args) -> list[str]:
     if args.device_cache:
         out.append("--device_cache: the device-resident corpus is not ported "
                    "(ROADMAP.md, queue 1: DeviceCorpus and CachedCorpus)")
-    if args.tp > 1:
-        out.append("--tp > 1 is not ported (ROADMAP.md, queue 1: dp/tp)")
     if args.conv_impl != "conv":
         out.append(f"--conv_impl {args.conv_impl}: the port has the 'conv' lowering only "
                    "(the others were measured and rejected on the TPU)")

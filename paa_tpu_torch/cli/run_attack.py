@@ -10,6 +10,14 @@ same exit codes: 0 on success, 1 on a failure, which also writes a failure
 ``--profile`` traces the attack loop with ``torch.profiler`` into
 ``<save_dir>/profile/trace.json`` (a Chrome trace), where the JAX CLI
 writes its ``jax.profiler`` trace.
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc_per_node N -m
+paa_tpu_torch.cli.run_attack <flags>``) every rank runs this entry point:
+each joins the process group (``parallel/mesh.py:init_process_group``),
+takes its card (``cuda:(LOCAL_RANK mod device_count)``) and runs the loop
+over the run's mesh: data parallelism when the batch divides over the
+ranks, dp × tp with ``--tp``. Rank 0 alone writes the run directory and the
+log file; the other ranks log warnings and errors to the console.
 """
 
 from __future__ import annotations
@@ -20,9 +28,11 @@ import os
 import sys
 
 import torch
+import torch.distributed as dist
 
 from paa_tpu_torch.train import artifacts, log_helpers
 from paa_tpu_torch import runtime
+from paa_tpu_torch.parallel import mesh as mesh_lib
 from paa_tpu_torch.cli import parser as parser_lib
 from paa_tpu_torch.config import SWEEP_ARG
 from paa_tpu_torch.models import checkpoint_io, hf_cache, wav2vec2
@@ -89,6 +99,20 @@ def load_model(args, device: torch.device) -> wav2vec2.Wav2Vec2ForCTC:
     return model.to(device)
 
 
+def setup_logging(save_dir: str, log_name: str = "train.log") -> logging.Logger:
+    """Rank 0: the run's log file and the console; any other rank:
+    warnings and errors on the console, marked with the rank."""
+    if mesh_lib.is_writer():
+        return log_helpers.setup_logging(save_dir, log_name)
+    log = logging.getLogger("paa_tpu")
+    log.setLevel(logging.WARNING)
+    log.handlers.clear()
+    handler = logging.StreamHandler()
+    handler.setFormatter(logging.Formatter(f"rank {mesh_lib.rank()} | %(levelname)s | %(message)s"))
+    log.addHandler(handler)
+    return log
+
+
 @contextlib.contextmanager
 def profile_run(save_dir: str, device: torch.device):
     """Trace the block with ``torch.profiler`` (CPU, and CUDA on the card)
@@ -111,13 +135,14 @@ def profile_run(save_dir: str, device: torch.device):
 
 def main(args) -> int:
     save_dir = make_save_dir(args)
-    os.makedirs(save_dir, exist_ok=True)
-    log = log_helpers.setup_logging(save_dir)
+    log = setup_logging(save_dir)
     log_helpers.log_args(log, vars(args))
     log.info("norm_type=%s | attack_size=%s", args.norm_type, args.attack_size_string)
 
+    joined = False
     try:
         device = select_device(args.platform)
+        joined = mesh_lib.init_process_group(device)
         log.info("device: %s%s", device,
                  f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
         cfg = parser_lib.config_from_args(args)
@@ -142,14 +167,18 @@ def main(args) -> int:
         return 0
     except Exception as e:  # the failure report
         log.exception("Run failed with an exception: %s", e)
-        try:
-            artifacts.save_json_results(
-                save_dir, args.norm_type, args.attack_size_string,
-                epoch=-1, finished_training=False, error=str(e),
-            )
-        except OSError:
-            log.exception("could not write the failure results.json")
+        if mesh_lib.is_writer():
+            try:
+                artifacts.save_json_results(
+                    save_dir, args.norm_type, args.attack_size_string,
+                    epoch=-1, finished_training=False, error=str(e),
+                )
+            except OSError:
+                log.exception("could not write the failure results.json")
         return 1
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

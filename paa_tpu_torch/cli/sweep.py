@@ -1,36 +1,43 @@
 """The ε sweep — ``python -m paa_tpu_torch.cli.sweep <flags>``.
 
-The port of ``paa_tpu/cli/sweep.py`` on one device. The reference farms
-the (norm_type × epsilon) grid to sbatch, one GPU per cell, and each cell
-runs the full attack loop (reference: submit_scan_range.py:8-143 driving
-src/run_attack.py:61-183). Here a sweep runs in one process with the same
+The port of ``paa_tpu/cli/sweep.py``. The reference farms the (norm_type
+× epsilon) grid to sbatch, one GPU per cell, and each cell runs the full
+attack loop (reference: submit_scan_range.py:8-143 driving
+src/run_attack.py:61-183). Here a sweep runs in one program with the same
 per-cell semantics:
 
-  * all epsilons of one norm type train together: every shared batch runs
-    the single-cell step once per live cell (attack/step.py:make_sweep_step,
-    the reference's host-multiplexed form), so data and model are shared
-    and one cell's activations are alive at a time;
+  * all epsilons of one norm type train together on a ``(sweep, data)``
+    mesh of the ranks (one process without ``torchrun``): with one sweep
+    slice per cell (``_ns_for``) each slice trains its own cell, the batch
+    split over the slice's data axis; otherwise every shared batch runs the
+    single-cell step once per live cell over all the ranks
+    (attack/step.py:make_sweep_step, the host-multiplexed form), so data and
+    model are shared and one cell's activations are alive at a time. Every
+    rank holds every cell's state after each step, so a rebuild over the
+    surviving cells finds each cell's p and optimizer state on its new
+    owner;
   * every cell starts from the perturbation a standalone run with this
     seed starts from (``AttackRunner.init_perturbation``: torch's RNG, then
     the cell's projection);
   * per epoch, every cell is evaluated on the eval split (one clean pass,
-    then one perturbed pass per cell, each ``AttackRunner.evaluate``), with
-    per-cell best-p tracking and early stopping; a stopped cell leaves the
-    device state at once;
+    ``AttackRunner.evaluate``, then the sweep eval step over the cells),
+    with per-cell best-p tracking and early stopping; a stopped cell leaves
+    the device state at once in the multiplexed form, and once at most half
+    the cells survive in the sharded one;
   * the sweep checkpoints per epoch and resumes exactly (the batch order is
     a pure function of (seed, epoch), as in train/loop.py), and refuses a
     checkpoint written under another configuration;
   * per-cell results land in the run directories, ``results.json`` and
     ``metrics.jsonl`` a single run writes (through train/loop.py's own
-    helpers, so the two loops cannot drift), plus ``sweep_results.json``.
+    helpers, so the two loops cannot drift), plus ``sweep_results.json``;
+    under ``torchrun`` rank 0 alone writes them.
 
 The sweep state is ``sweep_state_<norm>.pt`` (``torch.save`` of CPU
 tensors, read with ``weights_only=True``); the JAX package writes flax
 msgpack, ``sweep_state_<norm>.msgpack``, and neither resumes the other's.
-The reference's vmapped and sharded sweep forms need more than one device
-and are not ported (ROADMAP.md, queue 1: dp/tp). Default grids mirror
-submit_scan_range.py:80-88 (grids left empty there get the flag defaults as
-a single cell).
+``--tp > 1`` is refused, as the reference refuses it: the sweep's mesh has
+no ``model`` axis. Default grids mirror submit_scan_range.py:80-88 (grids
+left empty there get the flag defaults as a single cell).
 """
 
 from __future__ import annotations
@@ -45,11 +52,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from paa_tpu_torch.attack import optimizers, step as attack_step
 from paa_tpu_torch.cli import parser as parser_lib, run_attack as run_attack_cli
 from paa_tpu_torch.config import ConstraintParams, with_sweep_value
 from paa_tpu_torch.data import pipeline as pipeline_lib
+from paa_tpu_torch.parallel import mesh as mesh_lib
 from paa_tpu_torch.train import artifacts, checkpoint, log_helpers, loop, scoring
 
 # Reference grids: submit_scan_range.py:80-88.
@@ -94,22 +103,26 @@ def create_sweep_parser() -> argparse.ArgumentParser:
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     """Parse ``argv``; a flag the port refuses is a usage error (exit code 2),
     as in ``cli/parser.py:parse_args``. ``--profile`` too: the JAX sweep
-    accepts it and never traces."""
+    accepts it and never traces; and ``--tp > 1``, which the JAX sweep
+    refuses when it runs."""
     parser = create_sweep_parser()
     args = parser.parse_args(argv)
     refused = parser_lib.refusals(args)
     if args.profile:
         refused.append("--profile: the sweep does not trace; profile one cell with "
                        "cli.run_attack --profile")
+    if args.tp > 1:
+        refused.append("--tp > 1: the sweep's mesh axes are (sweep, data); run cells one by "
+                       "one through cli.run_attack --tp")
     if refused:
         parser.error("; ".join(refused))
     return args
 
 
 def _ns_for(s: int, n_dev: int) -> int:
-    """Sweep-axis size for an ``s``-cell sweep on ``n_dev`` devices: the
-    reference shards cells across chips when they divide evenly, else it
-    runs the host-multiplexed form (sweep axis 1), the only form ported."""
+    """Sweep-axis size for an ``s``-cell sweep on ``n_dev`` devices:
+    shard cells across ranks when they divide evenly, else the
+    host-multiplexed sweep-axis-1 form (attack/step.py:make_sweep_step)."""
     return s if n_dev % s == 0 and s <= n_dev else 1
 
 
@@ -148,8 +161,8 @@ def run_sweep(args, device: torch.device | None = None) -> dict:
     returns its content."""
     log = logging.getLogger("paa_tpu")
     if getattr(args, "tp", 1) > 1:
-        # one device: the sweep has no model axis to shard over; use
-        # run_attack per cell (or cli.launch_grid) once tp is ported
+        # the sweep's mesh is (sweep, data): no model axis to shard over;
+        # run cells one by one through run_attack --tp (or cli.launch_grid)
         raise SystemExit(
             "--tp > 1 is not supported by cli.sweep (its mesh axes are "
             "(sweep, data)); run cells individually via run_attack --tp"
@@ -168,7 +181,8 @@ def run_sweep(args, device: torch.device | None = None) -> dict:
 
     summary = {}
     root = args.save_root or os.path.join(os.getcwd(), "logs")
-    os.makedirs(root, exist_ok=True)
+    if mesh_lib.is_writer():
+        os.makedirs(root, exist_ok=True)
     for norm_type in norms:
         sizes = grids.get(norm_type, [])
         if not sizes:
@@ -177,9 +191,10 @@ def run_sweep(args, device: torch.device | None = None) -> dict:
             args, norm_type, [float(s) for s in sizes], pipe, model, root)
 
     out_path = os.path.join(root, "sweep_results.json")
-    with open(out_path, "w") as f:
-        json.dump(summary, f, indent=2)
-    log.info("sweep summary written to %s", out_path)
+    if mesh_lib.is_writer():
+        with open(out_path, "w") as f:
+            json.dump(summary, f, indent=2)
+        log.info("sweep summary written to %s", out_path)
     return summary
 
 
@@ -187,28 +202,55 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root) -> dict:
     """All epsilons of one norm type, each cell a full attack run
     (reference: one SLURM job per cell running run_attack.py:13-279)."""
     log = logging.getLogger("paa_tpu")
+    writer = mesh_lib.is_writer()
     S = len(sizes)
     cfg = parser_lib.config_from_args(args).replace(norm_type=norm_type)
     device = next(model.parameters()).device
     base = parser_lib.constraint_params_from_args(args, device=device)
     cparams_s = with_sweep_value(ConstraintParams(*(x.expand(S) for x in base)),
                                  norm_type, sizes)
-    # the runner's feed, targeted labels, eval and inspection are the single
-    # run's; the sweep adds the per-cell train step
-    runner = loop.AttackRunner(cfg, model, pipe, base)
-    step = attack_step.make_sweep_step(cfg, model, runner.tables)
-    n_dev = 1
-    n_sweep = _ns_for(S, n_dev)
-    programs_built = {S}
+    n_dev = mesh_lib.world_size()
+    meshes: dict = {}
+    programs: dict = {}
+
+    def mesh_for(s_dev: int):
+        """The (sweep, data) mesh of ``s_dev`` cells, made once per cell
+        count (making a mesh is collective: every rank makes the same ones
+        in the same order)."""
+        if s_dev not in meshes:
+            ns = _ns_for(s_dev, n_dev)
+            meshes[s_dev] = mesh_lib.sweep_mesh(n_sweep=ns, n_devices=n_dev)
+            n_data = meshes[s_dev].shape["data"]
+            if n_data > 1 and cfg.batch_size % n_data:
+                raise ValueError(f"batch_size {cfg.batch_size} must divide over the data axis "
+                                 f"({n_data} = {n_dev} devices / sweep {ns})")
+        return meshes[s_dev]
+
+    # the runner's feed, targeted labels, clean eval and inspection are the
+    # single run's, over the first mesh's data axis; the sweep adds the
+    # per-cell steps
+    runner = loop.AttackRunner(cfg, model, pipe, base, mesh=mesh_for(S))
+
+    def program(s_dev: int) -> tuple:
+        """(train step, eval step) for ``s_dev`` cells."""
+        if s_dev not in programs:
+            mesh = mesh_for(s_dev)
+            programs[s_dev] = (attack_step.make_sweep_step(cfg, model, runner.tables, mesh),
+                               attack_step.make_sweep_eval_step(cfg, model, mesh))
+        return programs[s_dev]
+
+    step, sweep_eval = program(S)
+    n_sweep = mesh_for(S).shape["sweep"]
 
     cell_dirs = [_cell_dir(root, args, cfg, norm_type, s) for s in sizes]
-    for d in cell_dirs:
-        os.makedirs(d, exist_ok=True)
+    if writer:
+        for d in cell_dirs:
+            os.makedirs(d, exist_ok=True)
     tb_writers: dict[int, object] = {}
 
     def _tb(i: int):
         """Cell i's TensorBoard writer, made at first use (--tensorboard)."""
-        if not getattr(args, "tensorboard", False):
+        if not getattr(args, "tensorboard", False) or not writer:
             return None
         if i not in tb_writers:
             from paa_tpu_torch.train import tb_events
@@ -216,10 +258,21 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root) -> dict:
             tb_writers[i] = tb_events.EventWriter(os.path.join(cell_dirs[i], "tb"))
         return tb_writers[i]
 
+    def evaluate_cells(split, p_dev) -> list:
+        """Each cell's perturbed Scores on ``split`` through the sweep eval."""
+        pending = []
+        for batch in runner._batches(split):
+            labels, pads = runner._labels(batch)
+            m = sweep_eval(p_dev, batch.audio, labels, pads, batch.weights)
+            pending.append((m, pipeline_lib.host_mask(batch), batch.indices))
+        return [loop._scores([(attack_step.cell(m, j), w, idx) for m, w, idx in pending],
+                             split.texts, float("inf")) for j in range(p_dev.shape[0])]
+
     # -- init: every cell starts from the standalone-run perturbation, the
     # same randn draw for every cell, then the cell's own projection
     p_full = torch.stack([runner.init_perturbation(cfg.seed, attack_step.cell(cparams_s, i))
                           for i in range(S)])
+    p_full = mesh_lib.broadcast(p_full, src=0)
     opt_full = attack_step.stack_cells(
         [optimizers.init_opt_state(cfg, p_full[i]) for i in range(S)])
 
@@ -257,11 +310,13 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root) -> dict:
         "synthetic_words": getattr(args, "synthetic_words", None),
         "n_train": len(pipe.train),
     }
-    if args.no_resume or args.small_data:
+    discard = args.no_resume or args.small_data
+    if discard and writer:
         for stale in (ckpt_path, fp_path):
             if os.path.exists(stale):
                 os.remove(stale)
-    elif os.path.exists(ckpt_path):
+    mesh_lib.barrier()  # rank 0 has discarded stale state before anyone reads it
+    if not discard and os.path.exists(ckpt_path):
         saved_fp = None
         if os.path.exists(fp_path):
             with open(fp_path) as fh:
@@ -287,10 +342,12 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root) -> dict:
         ce = state["clean_eval"].numpy()
         clean_eval = scoring.Scores(float(ce[0]), float(ce[1])) if np.isfinite(ce[0]) else None
         log.info("[sweep %s] resuming at epoch %d", norm_type, start_epoch)
+    mesh_lib.barrier()  # every rank has read the state before rank 0 writes
 
     # the per-cell metric streams keep only epochs before the resume point
-    for d in cell_dirs:
-        loop._truncate_metrics(os.path.join(d, "metrics.jsonl"), start_epoch)
+    if writer:
+        for d in cell_dirs:
+            loop._truncate_metrics(os.path.join(d, "metrics.jsonl"), start_epoch)
 
     # -- live-cell device state --------------------------------------------
     # The device state holds only the cells still training; the full-S
@@ -310,7 +367,7 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root) -> dict:
         n_live = int(live_mask.sum())
         if _should_drop(n_live, len(dev_idx), n_dev):
             dev_idx = np.flatnonzero(live_mask)
-            programs_built.add(len(dev_idx))
+            step, sweep_eval = program(len(dev_idx))
             keep = torch.from_numpy(dev_idx).to(device)
             p_s = p_full[keep]
             opt_s = None if opt_full is None else type(opt_full)(*(x[keep] for x in opt_full))
@@ -341,15 +398,16 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root) -> dict:
             opt_full = type(opt_full)(*(f.index_copy(0, keep, o) for f, o in zip(opt_full, opt_s)))
 
         # per live cell: its train scores from its slice of the stacked step
-        # metrics, and one perturbed eval pass
+        # metrics, and its perturbed eval scores
         if clean_eval is None:
             clean_eval = runner.evaluate(pipe.eval, p_s[0], perturbed=False)
+        pert_dev = evaluate_cells(pipe.eval, p_s)
         train, pert = {}, {}
         for j, i in enumerate(dev_idx.tolist()):
             if live_mask[i]:
                 train[i] = loop._scores([(attack_step.cell(m, j), w, idx)
                                          for m, w, idx in pending], pipe.train.texts, 0.0)
-                pert[i] = runner.evaluate(pipe.eval, p_s[j], perturbed=True)
+                pert[i] = pert_dev[j]
         log.info(
             "[sweep %s] epoch %d train_ctc=%s eval_pert_ctc=%s eval_pert_wer=%s active=%s "
             "cell_step_ms=%.1f", norm_type, epoch,
@@ -360,94 +418,104 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root) -> dict:
         )
 
         # per-cell records, best tracking and early stopping
-        # (run_attack.py:149-183), as train/loop.py:run_attack keeps them
+        # (run_attack.py:149-183), as train/loop.py:run_attack keeps them;
+        # the decisions gate collectives, so rank 0's scores decide them
         wall = time.perf_counter() - t_start
-        for i in train:
+        current = mesh_lib.agree([pert[i].wer if cfg.attack_mode == "targeted" else pert[i].ctc
+                                  for i in train])
+        for i, score in zip(train, current):
             h = history_s[i]
             scores = (train[i].ctc, train[i].wer, clean_eval.ctc, clean_eval.wer,
                       pert[i].ctc, pert[i].wer)
             for key, value in zip(HISTORY_KEYS, scores):
                 h[key].append(value)
-            loop._write_epoch(os.path.join(cell_dirs[i], "metrics.jsonl"), _tb(i), epoch,
-                              train[i], clean_eval, pert[i], cell_step_ms, lr)
-            artifacts.save_json_results(
-                cell_dirs[i], norm_type, sizes[i],
-                epoch=epoch, finished_training=False,
-                eval_score_clean={"ctc": clean_eval.ctc, "wer": clean_eval.wer},
-                **loop._running_scores(h, cfg.attack_mode),
-                sweep_steps_per_sec=_rate(n_cell_steps, wall),
-            )
-            current = pert[i].wer if cfg.attack_mode == "targeted" else pert[i].ctc
-            if scoring.is_better(current, best_score_s[i], cfg.attack_mode):
+            if writer:
+                loop._write_epoch(os.path.join(cell_dirs[i], "metrics.jsonl"), _tb(i), epoch,
+                                  train[i], clean_eval, pert[i], cell_step_ms, lr)
+                artifacts.save_json_results(
+                    cell_dirs[i], norm_type, sizes[i],
+                    epoch=epoch, finished_training=False,
+                    eval_score_clean={"ctc": clean_eval.ctc, "wer": clean_eval.wer},
+                    **loop._running_scores(h, cfg.attack_mode),
+                    sweep_steps_per_sec=_rate(n_cell_steps, wall),
+                )
+            if scoring.is_better(score, best_score_s[i], cfg.attack_mode):
                 no_improve_s[i] = 0
-                best_score_s[i] = current
+                best_score_s[i] = score
                 best_epoch_s[i] = epoch
                 best_p_s[i] = p_full[i].cpu().numpy()
-                checkpoint.save_perturbation(
-                    os.path.join(cell_dirs[i], "perturbation.npy"), best_p_s[i])
+                if writer:
+                    checkpoint.save_perturbation(
+                        os.path.join(cell_dirs[i], "perturbation.npy"), best_p_s[i])
             else:
                 no_improve_s[i] += 1
 
-        # written unconditionally WITH every checkpoint: an `only if absent`
-        # write would let a stale fingerprint from an earlier aborted run
-        # guard a checkpoint of a different configuration
-        with open(fp_path, "w") as fh:
-            json.dump(fingerprint, fh)
-        checkpoint.save_checkpoint(ckpt_path, {
-            "p_s": p_full, "opt_s": None if opt_full is None else opt_full._asdict(),
-            "epoch": epoch,
-            "best_score_s": best_score_s, "best_p_s": best_p_s,
-            "best_epoch_s": best_epoch_s, "no_improve_s": no_improve_s,
-            "history_s": [{k: torch.tensor(h[k], dtype=torch.float64) for k in HISTORY_KEYS}
-                          for h in history_s],
-            "clean_eval": np.asarray(
-                (clean_eval.ctc, clean_eval.wer) if clean_eval else (np.inf, np.inf),
-                np.float64),
-        })
+        if writer:
+            # written unconditionally WITH every checkpoint: an `only if
+            # absent` write would let a stale fingerprint from an earlier
+            # aborted run guard a checkpoint of a different configuration
+            with open(fp_path, "w") as fh:
+                json.dump(fingerprint, fh)
+            checkpoint.save_checkpoint(ckpt_path, {
+                "p_s": p_full, "opt_s": None if opt_full is None else opt_full._asdict(),
+                "epoch": epoch,
+                "best_score_s": best_score_s, "best_p_s": best_p_s,
+                "best_epoch_s": best_epoch_s, "no_improve_s": no_improve_s,
+                "history_s": [{k: torch.tensor(h[k], dtype=torch.float64) for k in HISTORY_KEYS}
+                              for h in history_s],
+                "clean_eval": np.asarray(
+                    (clean_eval.ctc, clean_eval.wer) if clean_eval else (np.inf, np.inf),
+                    np.float64),
+            })
         if np.all(no_improve_s >= cfg.early_stopping):
             log.info("[sweep %s] every cell early-stopped at epoch %d", norm_type, epoch)
             break
     wall = time.perf_counter() - t_start
 
     # -- finalize: best p per cell on the test split (run_attack.py:185-261)
+    _, sweep_eval = program(S)
     best_p_dev = torch.from_numpy(best_p_s).to(device)
     test_clean = runner.evaluate(pipe.test, best_p_dev[0], perturbed=False)
     clean_test = {"ctc": test_clean.ctc, "wer": test_clean.wer}
+    pert_tests = evaluate_cells(pipe.test, best_p_dev)
     norm_summary = []
     for i, size in enumerate(sizes):
         h = history_s[i]
-        pert_test = runner.evaluate(pipe.test, best_p_dev[i], perturbed=True)
-        test_pert = {"ctc": pert_test.ctc, "wer": pert_test.wer}
-        artifacts.save_epoch_bundle(cell_dirs[i], best_p_s[i][0], cfg)
+        test_pert = {"ctc": pert_tests[i].ctc, "wer": pert_tests[i].wer}
+        if writer:
+            artifacts.save_epoch_bundle(cell_dirs[i], best_p_s[i][0], cfg)
         if getattr(args, "cell_artifacts", False):
             # the full per-cell bundle a reference SLURM cell emits from its
             # own `main` (run_attack.py:61-183, save.py:49-199)
-            artifacts.save_loss_plot(
-                {"ctc": h["train_ctc"], "wer": h["train_wer"]},
-                {"ctc": h["eval_clean_ctc"], "wer": h["eval_clean_wer"]},
-                {"ctc": h["eval_pert_ctc"], "wer": h["eval_pert_wer"]},
-                cell_dirs[i], norm_type,
-                clean_test_loss=clean_test, perturbed_test_loss=test_pert,
-            )
-            if args.num_items_to_inspect > 0:
-                artifacts.inspect_samples(
-                    cell_dirs[i], runner.inspect_samples(best_p_dev[i], args.num_items_to_inspect),
-                    cfg.attack_mode, cfg.target, cfg.sr)
-            artifacts.save_debug_plots(cell_dirs[i], best_p_s[i], cfg,
-                                       attack_step.cell(cparams_s, i), runner.tables,
-                                       tag="final")
+            samples = (runner.inspect_samples(best_p_dev[i], args.num_items_to_inspect)
+                       if args.num_items_to_inspect > 0 else None)
+            if writer:
+                artifacts.save_loss_plot(
+                    {"ctc": h["train_ctc"], "wer": h["train_wer"]},
+                    {"ctc": h["eval_clean_ctc"], "wer": h["eval_clean_wer"]},
+                    {"ctc": h["eval_pert_ctc"], "wer": h["eval_pert_wer"]},
+                    cell_dirs[i], norm_type,
+                    clean_test_loss=clean_test, perturbed_test_loss=test_pert,
+                )
+                if samples is not None:
+                    artifacts.inspect_samples(cell_dirs[i], samples, cfg.attack_mode,
+                                              cfg.target, cfg.sr)
+                artifacts.save_debug_plots(cell_dirs[i], best_p_s[i], cfg,
+                                           attack_step.cell(cparams_s, i), runner.tables,
+                                           tag="final")
         running = loop._running_scores(h, cfg.attack_mode)
-        artifacts.save_json_results(
-            cell_dirs[i], norm_type, size,
-            epoch=int(best_epoch_s[i]), finished_training=True,
-            best_epoch=int(best_epoch_s[i]),
-            best_train_score=running["train_score"],
-            eval_score_clean=clean_test,
-            eval_score_perturbed=test_pert,
-            final_test_clean=clean_test,
-            final_test_perturbed=test_pert,
-            sweep_steps_per_sec=_rate(n_cell_steps, wall),
-        )
+        if writer:
+            artifacts.save_json_results(
+                cell_dirs[i], norm_type, size,
+                epoch=int(best_epoch_s[i]), finished_training=True,
+                best_epoch=int(best_epoch_s[i]),
+                best_train_score=running["train_score"],
+                eval_score_clean=clean_test,
+                eval_score_perturbed=test_pert,
+                final_test_clean=clean_test,
+                final_test_perturbed=test_pert,
+                sweep_steps_per_sec=_rate(n_cell_steps, wall),
+            )
         norm_summary.append({
             "size": float(size),
             "best_epoch": int(best_epoch_s[i]),
@@ -474,16 +542,17 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root) -> dict:
         "n_cell_steps": n_cell_steps,
         # the cell counts the device state was built for — a second entry
         # < S means the drop of frozen cells engaged
-        "programs_built": sorted(programs_built),
+        "programs_built": sorted(programs),
         "mesh": f"(sweep={n_sweep}, data={n_dev // n_sweep})",
     }
 
 
 def main(argv: list[str] | None = None) -> int:
+    """The sweep as ``python -m`` runs it; under ``torchrun`` every rank
+    runs it, over the ranks' ``(sweep, data)`` meshes, and rank 0 writes."""
     args = parse_args(argv)
     root = args.save_root or os.path.join(os.getcwd(), "logs")
-    os.makedirs(root, exist_ok=True)
-    log = log_helpers.setup_logging(root, log_name="sweep.log")
+    log = run_attack_cli.setup_logging(root, log_name="sweep.log")
     log_helpers.log_args(log, vars(args))
     # Without the device the run asks for, leave a machine-readable marker
     # (no per-cell results.json gets written) and exit 1, as run_attack's
@@ -492,10 +561,16 @@ def main(argv: list[str] | None = None) -> int:
         device = run_attack_cli.select_device(args.platform)
     except RuntimeError as e:
         log.error("device selection failed: %s", e)
-        with open(os.path.join(root, "sweep_failure.json"), "w") as f:
-            json.dump({"finished_training": False, "error": str(e)}, f, indent=2)
+        if mesh_lib.is_writer():
+            with open(os.path.join(root, "sweep_failure.json"), "w") as f:
+                json.dump({"finished_training": False, "error": str(e)}, f, indent=2)
         return 1
-    run_sweep(args, device)
+    joined = mesh_lib.init_process_group(device)
+    try:
+        run_sweep(args, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
     return 0
 
 

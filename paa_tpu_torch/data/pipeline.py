@@ -15,7 +15,8 @@ feed's (a test compares them):
     batch shape with weight-0 rows.
 
 :func:`to_device` copies a host batch to the card through pinned memory
-with a non-blocking copy. The device-resident corpora of the JAX package
+with a non-blocking copy. Under data parallelism the feed stays global and
+bit-exact on every rank; :func:`shard_rows` gives a rank its rows. The device-resident corpora of the JAX package
 (``DeviceCorpus``, ``CachedCorpus``) are not ported yet (ROADMAP.md,
 queue 1: DeviceCorpus and CachedCorpus).
 """
@@ -62,6 +63,17 @@ def to_device(batch: Batch, device: torch.device) -> Batch:
 
     return Batch(put(batch.audio), put(batch.labels), put(batch.label_paddings),
                  put(batch.weights), batch.indices, host_weights=np.asarray(batch.weights))
+
+
+def shard_rows(x, n: int, r: int):
+    """Rows ``[r·B/n, (r+1)·B/n)`` of ``x`` (a numpy array or a tensor with
+    the batch first): rank ``r``'s share of a batch on an ``n``-way data
+    axis."""
+    B = x.shape[0]
+    if B % n:
+        raise ValueError(f"a batch of {B} rows does not split over {n} data ranks")
+    b = B // n
+    return x[r * b:(r + 1) * b]
 
 
 @dataclasses.dataclass

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from paa_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+from paa_tpu_torch.parallel import tp
 
 
 def params_from_jax(params: dict, cfg: Wav2Vec2Config) -> dict[str, torch.Tensor]:
@@ -74,6 +75,14 @@ def params_from_jax(params: dict, cfg: Wav2Vec2Config) -> dict[str, torch.Tensor
 
     linear("lm_head", params["lm_head"])
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def sharded_params_from_jax(params: dict, cfg: Wav2Vec2Config, rank: int,
+                            n_model: int) -> dict[str, torch.Tensor]:
+    """Rank ``rank``'s slice, on an ``n_model``-way model axis, of the Flax
+    tree ``params``: the full conversion, then ``tp.shard_params``; loads
+    into ``Wav2Vec2ForCTC(cfg, model_axis=...)``."""
+    return tp.shard_params(params_from_jax(params, cfg), rank, n_model)
 
 
 def export_hf_state_dict(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:

@@ -21,7 +21,10 @@ Numerics follow the reference's placement:
     the SamePad trim of one frame for an even kernel;
   * the ``lm_head`` runs in float32;
   * attention goes through ``ops/kernels/attention.py`` (K1/K2 on a CUDA
-    tensor, their plain version on a CPU tensor).
+    tensor, their plain version on a CPU tensor);
+  * under tensor parallelism (a ``model_axis``) each rank's attention and FFN
+    hold its slice of the Megatron layout and reduce their branches over the
+    ``model`` axis (``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from paa_tpu_torch.ops.kernels.attention import attention
+from paa_tpu_torch.parallel import tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,47 +231,67 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, cfg: Wav2Vec2Config):
+    """Self-attention; under tensor parallelism (``axis``) this rank's
+    ``heads / tp`` heads, with the branch's collectives of ``parallel/tp.py``
+    (the reference's ``_manual_shard``: K1/K2 on the local heads)."""
+
+    def __init__(self, cfg: Wav2Vec2Config, axis: tp.ModelAxis | None = None):
         super().__init__()
         H = cfg.hidden_size
-        self.heads = cfg.num_attention_heads
-        self.scale = (H // self.heads) ** -0.5
-        self.q_proj = nn.Linear(H, H)
-        self.k_proj = nn.Linear(H, H)
-        self.v_proj = nn.Linear(H, H)
-        self.out_proj = nn.Linear(H, H)
+        n = axis.size if axis is not None else 1
+        self.axis = axis
+        self.heads = cfg.num_attention_heads // n
+        self.head_dim = H // cfg.num_attention_heads
+        self.scale = self.head_dim ** -0.5
+        local = self.heads * self.head_dim
+        self.q_proj = nn.Linear(H, local)
+        self.k_proj = nn.Linear(H, local)
+        self.v_proj = nn.Linear(H, local)
+        self.out_proj = nn.Linear(local, H)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, H)
-        B, T, H = x.shape
+        B, T, _ = x.shape
         dt = x.dtype
-        split = lambda t: t.view(B, T, self.heads, H // self.heads)
+        if self.axis is not None:
+            x = tp.copy_to_model(x, self.axis)
+        split = lambda t: t.view(B, T, self.heads, self.head_dim)
         q = _linear(x, self.q_proj, dt) * self.scale
         k = _linear(x, self.k_proj, dt)
         v = _linear(x, self.v_proj, dt)
-        ctx = attention(split(q), split(k), split(v))
-        return _linear(ctx.reshape(B, T, H), self.out_proj, dt)
+        ctx = attention(split(q), split(k), split(v)).reshape(B, T, self.heads * self.head_dim)
+        if self.axis is not None:
+            return tp.row_parallel(ctx, self.out_proj, self.axis, dt)
+        return _linear(ctx, self.out_proj, dt)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, cfg: Wav2Vec2Config):
+    """The FFN; under tensor parallelism this rank's ``intermediate_size /
+    tp`` columns."""
+
+    def __init__(self, cfg: Wav2Vec2Config, axis: tp.ModelAxis | None = None):
         super().__init__()
-        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        n = axis.size if axis is not None else 1
+        self.axis = axis
+        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size // n)
+        self.output_dense = nn.Linear(cfg.intermediate_size // n, cfg.hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
-        return _linear(F.gelu(_linear(x, self.intermediate_dense, dt)), self.output_dense, dt)
+        if self.axis is None:
+            return _linear(F.gelu(_linear(x, self.intermediate_dense, dt)), self.output_dense, dt)
+        h = F.gelu(_linear(tp.copy_to_model(x, self.axis), self.intermediate_dense, dt))
+        return tp.row_parallel(h, self.output_dense, self.axis, dt)
 
 
 class EncoderLayer(nn.Module):
     """One transformer layer: post-LN (base) or pre-LN (lv60)."""
 
-    def __init__(self, cfg: Wav2Vec2Config):
+    def __init__(self, cfg: Wav2Vec2Config, axis: tp.ModelAxis | None = None):
         super().__init__()
         self.pre_ln = cfg.do_stable_layer_norm
-        self.attention = SelfAttention(cfg)
+        self.attention = SelfAttention(cfg, axis)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.feed_forward = FeedForward(cfg)
+        self.feed_forward = FeedForward(cfg, axis)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -279,13 +303,13 @@ class EncoderLayer(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: Wav2Vec2Config):
+    def __init__(self, cfg: Wav2Vec2Config, axis: tp.ModelAxis | None = None):
         super().__init__()
         self.pre_ln = cfg.do_stable_layer_norm
         self.pos_conv_embed = PositionalConvEmbedding(cfg)
         # before the stack (post-LN), or after it (pre-LN); one HF name
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
+        self.layers = nn.ModuleList(EncoderLayer(cfg, axis) for _ in range(cfg.num_hidden_layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.pos_conv_embed(x)
@@ -297,12 +321,12 @@ class Encoder(nn.Module):
 
 
 class Wav2Vec2Model(nn.Module):
-    def __init__(self, cfg: Wav2Vec2Config):
+    def __init__(self, cfg: Wav2Vec2Config, axis: tp.ModelAxis | None = None):
         super().__init__()
         self.cfg = cfg
         self.feature_extractor = FeatureExtractor(cfg)
         self.feature_projection = FeatureProjection(cfg)
-        self.encoder = Encoder(cfg)
+        self.encoder = Encoder(cfg, axis)
 
     def forward(self, audio: torch.Tensor) -> torch.Tensor:  # (B, T) float32
         x = self.feature_extractor(audio[:, None, :].to(self.cfg.dtype))
@@ -311,12 +335,16 @@ class Wav2Vec2Model(nn.Module):
 
 
 class Wav2Vec2ForCTC(nn.Module):
-    """Raw waveform ``(B, T)`` → CTC logits ``(B, frames, vocab)`` float32."""
+    """Raw waveform ``(B, T)`` → CTC logits ``(B, frames, vocab)`` float32.
 
-    def __init__(self, cfg: Wav2Vec2Config):
+    With ``model_axis`` (``parallel/tp.py``) the encoder's attention and FFN
+    hold this rank's slice of the Megatron layout (``tp.shard_model`` builds
+    it from the full model); everything else is the full model's."""
+
+    def __init__(self, cfg: Wav2Vec2Config, model_axis: tp.ModelAxis | None = None):
         super().__init__()
         self.cfg = cfg
-        self.wav2vec2 = Wav2Vec2Model(cfg)
+        self.wav2vec2 = Wav2Vec2Model(cfg, model_axis)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size)
         self._register_load_state_dict_pre_hook(_hf_compat)
 

@@ -5,7 +5,10 @@ The sources in ``paa_tpu_torch/csrc`` are compiled with ``nvcc`` for
 ``ctypes``. The build runs at first use, one ``nvcc`` per source started
 together, into ``build/paa_tpu_torch/`` at the repository root; the
 library's file name carries a hash of the sources, so an edited source is
-never served by a stale build.
+never served by a stale build. Processes that start together (the ranks of
+a ``torchrun`` launch) build under an exclusive file lock: the first builds,
+the others wait and load its library; a failed build raises in the process
+that ran it, and each waiting process then builds again and raises too.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it. A run
 sets the counts to 0 with :func:`reset_launches` and reads them after.
@@ -14,6 +17,7 @@ sets the counts to 0 with :func:`reset_launches` and reads them after.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -119,7 +123,12 @@ def library() -> ctypes.CDLL:
         return _lib
     target = BUILD_DIR / f"libpaa_kernels-{_source_hash()}.so"
     if not target.exists():
-        _build(target)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # the OS drops an flock when its holder exits, also on a crash
+        with open(BUILD_DIR / "build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not target.exists():
+                _build(target)
     lib = ctypes.CDLL(str(target))
     for fn, argtypes in _SIGNATURES.items():
         getattr(lib, fn).argtypes = list(argtypes)

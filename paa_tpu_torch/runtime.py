@@ -2,11 +2,18 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
 def require_cuda() -> torch.device:
-    """Return the CUDA device, or raise when there is none.
+    """Return this process's CUDA device, or raise when there is none.
+
+    The device is ``cuda:(LOCAL_RANK mod device_count)``: under ``torchrun``
+    each rank of a node takes its own card while there are enough, and ranks
+    share the cards round-robin when there are more ranks than cards; without
+    ``torchrun`` it is ``cuda:0``. The device becomes the current one.
 
     Sets the float32 policy explicitly: matmuls and cuDNN convolutions run
     in full float32 (PyTorch's default lets cuDNN use TF32, about three
@@ -16,4 +23,6 @@ def require_cuda() -> torch.device:
         raise RuntimeError("no CUDA device: this path runs only on a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+    index = int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count()
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)

@@ -1,7 +1,6 @@
 """Epoch orchestration: train → eval → track best → early stop → finalize.
 
-Port of ``paa_tpu/train/loop.py`` on one device (its mesh branches are not
-ported: ROADMAP.md, queue 1: dp/tp). The run is the JAX package's, step for
+Port of ``paa_tpu/train/loop.py``. The run is the JAX package's, step for
 step:
 
   * every train batch is one attack step (attack/step.py); its metrics stay
@@ -15,6 +14,14 @@ step:
   * resume is exact: p, Adam state, epoch, best score and history are
     checkpointed (train/checkpoint.py), and the shuffle order is a pure
     function of (seed, epoch).
+
+Under ``torchrun`` the runner takes its mesh from ``decide_mesh`` (the
+reference's mesh branches): dp, or dp × tp with the model sharded on the
+``model`` axis; every rank feeds the same global batches and runs the
+sharded steps, and their metrics are global on every rank. The initial p
+is broadcast from rank 0, the early-stop decision is rank 0's on every
+rank, every rank reads the checkpoint on resume, and only rank 0 writes the
+run directory.
 
 The helpers of ``train`` (scoring, log_helpers, tb_events and artifacts)
 are the port's own copies of the JAX package's.
@@ -38,6 +45,7 @@ from paa_tpu_torch.config import AttackConfig, ConstraintParams, attack_size_val
 from paa_tpu_torch.data import pipeline as pipeline_lib
 from paa_tpu_torch.models import wav2vec2
 from paa_tpu_torch.ops import projections, psycho
+from paa_tpu_torch.parallel import mesh as mesh_lib, tp as tp_lib
 from paa_tpu_torch.train import checkpoint
 
 logger = logging.getLogger("paa_tpu")
@@ -151,22 +159,34 @@ def _sync(device: torch.device) -> None:
 
 
 class AttackRunner:
-    """The steps, tables and data feed of one attack configuration on one
-    device (the device of the model's parameters)."""
+    """The steps, tables and data feed of one attack configuration on the
+    device of the model's parameters, over the run's mesh.
+
+    ``mesh``: "auto" takes the reference's choice, ``decide_mesh(cfg.tp,
+    cfg.batch_size)`` over the world's ranks (``tp > 1`` checks the model
+    axis first); None runs the one-device steps; a mesh with a ``data``
+    axis (the sweep passes its own) shards the batch over it. On a mesh
+    with a ``model`` axis the runner keeps this rank's shard of ``model``."""
 
     def __init__(self, cfg: AttackConfig, model: torch.nn.Module,
-                 pipe: pipeline_lib.DataPipeline, cparams: ConstraintParams | None = None):
-        if cfg.tp > 1:
-            raise NotImplementedError("tp > 1 is not ported yet (ROADMAP.md, queue 1: dp/tp)")
+                 pipe: pipeline_lib.DataPipeline, cparams: ConstraintParams | None = None,
+                 mesh="auto"):
+        if isinstance(mesh, str):
+            if cfg.tp > 1:
+                tp_lib.check_model_axis(wav2vec2.get_config(cfg.model_name), cfg.tp)
+            mesh = mesh_lib.decide_mesh(cfg.tp, cfg.batch_size)
+        self.mesh = mesh
         self.cfg = cfg
         self.pipe = pipe
-        self.model = model
+        self.model = tp_lib.shard_model(model, mesh)
         self.device = next(model.parameters()).device
         cparams = cparams if cparams is not None else ConstraintParams.create()
         self.cparams = ConstraintParams(*(t.to(self.device) for t in cparams))
         self.tables = psycho.build_tables(cfg, self.device)
-        self.train_step = attack_step.make_train_step(cfg, model, self.tables)
-        self.eval_step = attack_step.make_eval_step(cfg, model)
+        self.train_step = attack_step.make_sharded_step(cfg, self.model, self.tables, mesh)
+        self.eval_step = attack_step.make_sharded_eval_step(cfg, self.model, mesh)
+        if mesh is not None:
+            logger.info("mesh %s over %d ranks", mesh.shape, mesh.size)
         self._tgt = None
         if cfg.attack_mode == "targeted":
             tl, tp = _targeted_labels(cfg, cfg.batch_size, pipe.train.labels.shape[1],
@@ -278,8 +298,11 @@ def run_attack(
     the device of ``model``. ``init_p`` warm-starts from a saved
     perturbation; ``debug_plots`` draws the projection debug panels on each
     improving epoch; ``tensorboard`` mirrors the per-epoch metrics to
-    ``save_dir/tb/``."""
-    os.makedirs(save_dir, exist_ok=True)
+    ``save_dir/tb/``. Under ``torchrun`` every rank calls it; rank 0
+    writes."""
+    writer = mesh_lib.is_writer()
+    if writer:
+        os.makedirs(save_dir, exist_ok=True)
     runner = AttackRunner(cfg, model, pipe, cparams)
     cparams, device = runner.cparams, runner.device
     size_str = attack_size_value(cfg, cparams)
@@ -291,6 +314,7 @@ def run_attack(
         p = torch.from_numpy(np.asarray(init_p, np.float32).reshape(1, -1)).to(device)
     else:
         p = runner.init_perturbation(cfg.seed)
+    p = mesh_lib.broadcast(p.contiguous(), src=0)
     opt_state = optimizers.init_opt_state(cfg, p)
 
     history = {
@@ -324,12 +348,15 @@ def run_attack(
         best_p = state["best_p"].numpy()
         history = {k: v.tolist() for k, v in state["history"].items()}
         logger.info("Resuming from checkpoint: %s (epoch=%d)", path, start_epoch)
+    # every rank has read the state before rank 0 writes the next one
+    mesh_lib.barrier()
 
     # the metric stream keeps only epochs before the resume point
     metrics_path = os.path.join(save_dir, "metrics.jsonl")
-    _truncate_metrics(metrics_path, start_epoch)
+    if writer:
+        _truncate_metrics(metrics_path, start_epoch)
     tb_writer = None
-    if tensorboard:
+    if tensorboard and writer:
         from paa_tpu_torch.train import tb_events
 
         tb_writer = tb_events.EventWriter(os.path.join(save_dir, "tb"))
@@ -376,47 +403,53 @@ def run_attack(
         )
         emis_fields = ({"eval_emission_rate": emis["emission_rate"],
                         "eval_wer_to_target": emis["wer_to_target"]} if emis else {})
-        _write_epoch(metrics_path, tb_writer, epoch, train_scores, clean, pert, step_ms,
-                     optimizers.step_lr(cfg, epoch), emis_fields)
-        artifacts.save_loss_plot(
-            {"ctc": history["train_ctc"], "wer": history["train_wer"]},
-            {"ctc": history["eval_clean_ctc"], "wer": history["eval_clean_wer"]},
-            {"ctc": history["eval_pert_ctc"], "wer": history["eval_pert_wer"]},
-            save_dir, cfg.norm_type,
-        )
-        artifacts.save_json_results(
-            save_dir, cfg.norm_type, size_str,
-            epoch=epoch, finished_training=False,
-            eval_score_clean={"ctc": clean.ctc, "wer": clean.wer},
-            **_running_scores(history, cfg.attack_mode),
-            steps_per_sec=(1000.0 / step_ms if step_ms else None),
-        )
+        if writer:
+            _write_epoch(metrics_path, tb_writer, epoch, train_scores, clean, pert, step_ms,
+                         optimizers.step_lr(cfg, epoch), emis_fields)
+            artifacts.save_loss_plot(
+                {"ctc": history["train_ctc"], "wer": history["train_wer"]},
+                {"ctc": history["eval_clean_ctc"], "wer": history["eval_clean_wer"]},
+                {"ctc": history["eval_pert_ctc"], "wer": history["eval_pert_wer"]},
+                save_dir, cfg.norm_type,
+            )
+            artifacts.save_json_results(
+                save_dir, cfg.norm_type, size_str,
+                epoch=epoch, finished_training=False,
+                eval_score_clean={"ctc": clean.ctc, "wer": clean.wer},
+                **_running_scores(history, cfg.attack_mode),
+                steps_per_sec=(1000.0 / step_ms if step_ms else None),
+            )
 
-        current = pert.wer if targeted else pert.ctc
+        # the branch below gates collectives (inspection's eval steps, the
+        # next epoch): rank 0's score decides it on every rank
+        (current,) = mesh_lib.agree([pert.wer if targeted else pert.ctc])
         if scoring.is_better(current, best_eval_score, cfg.attack_mode):
             no_improve = 0
             best_eval_score = current
             best_epoch = epoch
             best_p = p.detach().cpu().numpy()
-            checkpoint.save_perturbation(pert_path, best_p)
-            artifacts.save_epoch_bundle(save_dir, best_p[0], cfg)
-            if debug_plots:
-                artifacts.save_debug_plots(save_dir, best_p, cfg, cparams, runner.tables,
-                                           tag=f"epoch{epoch}")
+            if writer:
+                checkpoint.save_perturbation(pert_path, best_p)
+                artifacts.save_epoch_bundle(save_dir, best_p[0], cfg)
+                if debug_plots:
+                    artifacts.save_debug_plots(save_dir, best_p, cfg, cparams, runner.tables,
+                                               tag=f"epoch{epoch}")
             if num_items_to_inspect > 0:
-                artifacts.inspect_samples(
-                    save_dir, runner.inspect_samples(p, num_items_to_inspect),
-                    cfg.attack_mode, cfg.target, cfg.sr)
+                samples = runner.inspect_samples(p, num_items_to_inspect)
+                if writer:
+                    artifacts.inspect_samples(save_dir, samples, cfg.attack_mode, cfg.target,
+                                              cfg.sr)
         else:
             no_improve += 1
 
-        checkpoint.save_checkpoint(ckpt_path, {
-            "p": p,
-            "opt_state": None if opt_state is None else opt_state._asdict(),
-            "epoch": epoch, "best_epoch": best_epoch, "no_improve": no_improve,
-            "best_eval_score": best_eval_score, "best_p": best_p,
-            "history": {k: torch.tensor(v, dtype=torch.float64) for k, v in history.items()},
-        })
+        if writer:
+            checkpoint.save_checkpoint(ckpt_path, {
+                "p": p,
+                "opt_state": None if opt_state is None else opt_state._asdict(),
+                "epoch": epoch, "best_epoch": best_epoch, "no_improve": no_improve,
+                "best_eval_score": best_eval_score, "best_p": best_p,
+                "history": {k: torch.tensor(v, dtype=torch.float64) for k, v in history.items()},
+            })
         if no_improve >= cfg.early_stopping:
             logger.info("No improvements in %d epochs. Stopping early.", no_improve)
             break
@@ -441,25 +474,26 @@ def run_attack(
         pert_test = runner.evaluate(pipe.test, p, perturbed=True)
         clean_test = runner.evaluate(pipe.test, p, perturbed=False)
 
-    artifacts.save_loss_plot(
-        {"ctc": history["train_ctc"], "wer": history["train_wer"]},
-        {"ctc": history["eval_clean_ctc"], "wer": history["eval_clean_wer"]},
-        {"ctc": history["eval_pert_ctc"], "wer": history["eval_pert_wer"]},
-        save_dir, cfg.norm_type,
-        clean_test_loss={"ctc": clean_test.ctc, "wer": clean_test.wer},
-        perturbed_test_loss={"ctc": pert_test.ctc, "wer": pert_test.wer},
-    )
-    artifacts.save_json_results(
-        save_dir, cfg.norm_type, size_str,
-        epoch=best_epoch, finished_training=True, best_epoch=best_epoch,
-        best_train_score=_running_scores(history, cfg.attack_mode)["train_score"],
-        eval_score_clean={"ctc": clean_test.ctc, "wer": clean_test.wer},
-        eval_score_perturbed={"ctc": pert_test.ctc, "wer": pert_test.wer},
-        final_test_clean={"ctc": clean_test.ctc, "wer": clean_test.wer},
-        final_test_perturbed={"ctc": pert_test.ctc, "wer": pert_test.wer},
-        steps_per_sec=(1000.0 / step_ms if step_ms else None),
-        **({"targeted_metrics": test_emis} if test_emis is not None else {}),
-    )
+    if writer:
+        artifacts.save_loss_plot(
+            {"ctc": history["train_ctc"], "wer": history["train_wer"]},
+            {"ctc": history["eval_clean_ctc"], "wer": history["eval_clean_wer"]},
+            {"ctc": history["eval_pert_ctc"], "wer": history["eval_pert_wer"]},
+            save_dir, cfg.norm_type,
+            clean_test_loss={"ctc": clean_test.ctc, "wer": clean_test.wer},
+            perturbed_test_loss={"ctc": pert_test.ctc, "wer": pert_test.wer},
+        )
+        artifacts.save_json_results(
+            save_dir, cfg.norm_type, size_str,
+            epoch=best_epoch, finished_training=True, best_epoch=best_epoch,
+            best_train_score=_running_scores(history, cfg.attack_mode)["train_score"],
+            eval_score_clean={"ctc": clean_test.ctc, "wer": clean_test.wer},
+            eval_score_perturbed={"ctc": pert_test.ctc, "wer": pert_test.wer},
+            final_test_clean={"ctc": clean_test.ctc, "wer": clean_test.wer},
+            final_test_perturbed={"ctc": pert_test.ctc, "wer": pert_test.wer},
+            steps_per_sec=(1000.0 / step_ms if step_ms else None),
+            **({"targeted_metrics": test_emis} if test_emis is not None else {}),
+        )
     log_helpers.log_summary_metrics(
         norm_type=cfg.norm_type, attack_size_string=str(size_str),
         clean_ctc_test=clean_test.ctc, clean_wer_test=clean_test.wer,

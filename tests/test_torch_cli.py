@@ -70,7 +70,6 @@ def test_same_argv_same_config(argv):
     ["--remat"],
     ["--remat_policy", "save_cheap"],
     ["--device_cache"],
-    ["--tp", "2"],
     ["--conv_impl", "hybrid"],
     ["--device_probe_timeout", "60"],
     ["--conv_impl", "im2col"],
@@ -82,6 +81,26 @@ def test_tpu_only_flags_are_refused(argv, capsys):
         tparser.parse_args(argv)
     assert e.value.code == 2
     assert argv[0] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("tp", [2, 3])
+def test_tp_flag_as_the_reference_takes_it(tp):
+    """``--tp`` parses as the JAX CLI's; a size that the ranks do not
+    divide (3 over one process here) fails where the reference's does, in
+    ``decide_mesh``, with its message; base's 12 heads and 3072 FFN columns
+    pass the model-axis check for both."""
+    from paa_tpu.parallel import mesh as jmesh
+    from paa_tpu_torch.train import loop
+
+    argv = ["--model", "wav2vec2-base", "--tp", str(tp), "--batch_size", "8"]
+    targs = tparser.parse_args(argv)
+    cfg = tparser.config_from_args(targs)
+    assert cfg.tp == tp == jparser.config_from_args(jparser.create_arg_parser().parse_args(argv)).tp
+    with pytest.raises(ValueError) as want:
+        jmesh.decide_mesh(tp, 8, n_devices=1)
+    with pytest.raises(ValueError) as got:
+        loop.AttackRunner(cfg, model=None, pipe=None)
+    assert str(got.value) == str(want.value) == f"--tp {tp} must divide the device count 1"
 
 
 def test_dense_attention_is_accepted_on_the_cpu():
