@@ -90,6 +90,24 @@ line:
                one cell a rank, against the same sweep in one process.
                Its times are of two processes sharing one card over gloo,
                not scaling numbers.
+ 10. feed    — the host feed against the device feed: (a) on phase 7's
+               corpus at B=64, the host feed (collate, then
+               ``prefetch_to_device``), ``DeviceCorpus`` and ``CachedCorpus``
+               with half the split resident: ms a batch over 5 shuffled
+               epochs of the train split (host clock, ending in a
+               synchronize), bytes copied to the card a batch, bytes staged;
+               every batch of every split with its valid rows bit-equal
+               across the feeds, padding rows the split's row 0 in both
+               corpora and zero audio in the host feed; (b) ``run_attack``
+               at base's full width on that corpus, fletcher_munson PGD,
+               one epoch, with ``--no_device_cache`` and ``--device_cache``:
+               ``step_time_ms`` beside phase 4's step, the peak, launches
+               as computed, clean test scores equal between the feeds and
+               perturbed ones within phase 6's anchor tolerance; (c) the
+               anchor with dp=2 under ``torchrun`` on the device feed:
+               clean test scores equal to phase 6's, p bit-equal on the
+               ranks. Phases 6, 7 and 9 run on the device feed too, the
+               default on CUDA.
 
 Then K1/K2's WMMA route (head dim 16) at the anchor's shape, the kernels
 line ``{"kernels": [...]}`` (per kernel and the runs it counts: launches in
@@ -103,6 +121,7 @@ instead. The CLI and sweep runs write under ``chiprun_out/chip_smoke/``.
 from __future__ import annotations
 
 import functools
+import hashlib
 import importlib.util
 import json
 import math
@@ -122,7 +141,7 @@ from paa_tpu_torch import runtime
 from paa_tpu_torch.attack import optimizers, step
 from paa_tpu_torch.cli import parser
 from paa_tpu_torch.config import AttackConfig, ConstraintParams
-from paa_tpu_torch.data import synthetic
+from paa_tpu_torch.data import pipeline, synthetic
 from paa_tpu_torch.models import checkpoint_io, wav2vec2
 from paa_tpu_torch.ops import dsp, psycho, text
 from paa_tpu_torch.ops.kernels import _lib, attention, fm_norm
@@ -730,10 +749,15 @@ ONE_CELL_TOL = {"rtol": 2e-3, "atol": 1e-6}  # perturbation.npy against run_atta
 
 
 @functools.cache
+def sweep_pipe():
+    """The base sweep's corpus (phase 10's too), as its flags make it."""
+    args = parser.create_arg_parser().parse_known_args(SWEEP_ARGV)[0]
+    return parser.pipeline_from_args(args)
+
+
 def sweep_audio_len() -> int:
     """The base sweep's clip length, from the corpus its flags make."""
-    args = parser.create_arg_parser().parse_known_args(SWEEP_ARGV)[0]
-    return parser.pipeline_from_args(args).audio_len
+    return sweep_pipe().audio_len
 
 
 def run_sweep(name: str, argv: list[str]) -> tuple[dict, dict, dict, int]:
@@ -1053,12 +1077,17 @@ def run_ranks(kind: str, out_dir: str, extra: list[str]) -> tuple[list[dict], fl
 def worker(kind: str, out_dir: str, extra: list[str]) -> int:
     """One rank of ``run_ranks``: ``steps`` runs (a) and (b); ``cli`` runs
     ``python -m extra[1] extra[2:]`` (after ``--``) in this process. Writes
-    its record, with its launch counts, to ``<out_dir>/<kind>_rank<r>.json``."""
+    its record, with its launch counts (and for ``cli`` a hash of the p each
+    ``run_attack`` returned), to ``<out_dir>/<kind>_rank<r>.json``."""
     rank = int(os.environ["RANK"])
     if kind == "steps":
         record = worker_steps(out_dir, rank)
     else:
+        from paa_tpu_torch.train import loop
+
         module, argv = extra[1], extra[2:]
+        results, run_attack = [], loop.run_attack
+        loop.run_attack = lambda *a, **kw: results.append(run_attack(*a, **kw)) or results[-1]
         _lib.reset_launches()
         saved = sys.argv
         sys.argv = [module, *argv]
@@ -1069,7 +1098,11 @@ def worker(kind: str, out_dir: str, extra: list[str]) -> int:
             code = e.code
         finally:
             sys.argv = saved
-        record = {"code": code, "launches": dict(_lib.launches)}
+            loop.run_attack = run_attack
+        # the best p each rank's run_attack returned (none for the sweep)
+        record = {"code": code, "launches": dict(_lib.launches),
+                  "perturbation_sha256": [hashlib.sha256(r.perturbation.tobytes()).hexdigest()
+                                          for r in results]}
     record["jax_modules"] = sorted(m for m in sys.modules
                                    if m.split(".")[0] in ("jax", "flax", "optax", "paa_tpu"))
     with open(os.path.join(out_dir, f"{kind}_rank{rank}.json"), "w") as f:
@@ -1273,10 +1306,174 @@ def phase_parallel(dev, card: str, anchor: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the feeds, host and device
+# ---------------------------------------------------------------------------
+
+# run_attack at base's full width on phase 7's corpus: 2 train batches of 64,
+# eval and test batches of 16 valid rows and 48 padding rows each
+FEED_ARGV = ["--model", "wav2vec2-base", "--dataset", "synthetic", "--synthetic_samples", "226",
+             "--synthetic_words", "20,24", "--batch_size", "64", "--optimizer_type", "pgd",
+             "--norm_type", "fletcher_munson"]
+FEED_EPOCHS = 5  # timed epochs of the train split a feed, after one untimed
+STAGED_LINE = "staged split to device"  # the device feed's log line (pipeline.CorpusCache)
+
+
+def feeds(split, dev) -> dict:
+    """name → (batches(shuffle_rng) → iterator, bytes staged): the host feed,
+    the whole split staged, and half of it staged."""
+    corpus = pipeline.DeviceCorpus(split, dev)
+    cached = pipeline.CachedCorpus(split, (len(split) // 2) * pipeline.row_bytes(split), dev)
+    return {"host": (lambda rng: pipeline.prefetch_to_device(split.batches(MAIN_B, rng), dev), 0),
+            "device": (lambda rng: corpus.batches(MAIN_B, rng), corpus.staged_bytes),
+            "cached": (lambda rng: cached.batches(MAIN_B, rng), cached.staged_bytes)}
+
+
+def time_feed(batches) -> dict:
+    """ms a batch over FEED_EPOCHS shuffled epochs (host clock, ending in a
+    synchronize), and the bytes each batch copies to the card."""
+    for _ in batches(np.random.default_rng((SEED, 0))):
+        pass
+    torch.cuda.synchronize()
+    pipeline.reset_h2d()
+    n = 0
+    t0 = time.perf_counter()
+    for epoch in range(1, FEED_EPOCHS + 1):
+        for _ in batches(np.random.default_rng((SEED, epoch))):
+            n += 1
+    torch.cuda.synchronize()
+    return {"ms_per_batch": 1e3 * (time.perf_counter() - t0) / n,
+            "h2d_bytes_per_batch": pipeline.h2d["bytes"] / n,
+            "h2d_copies_per_batch": pipeline.h2d["copies"] / n, "batches": n}
+
+
+def check_feed_batches(name: str, split, made: dict) -> int:
+    """Every batch of the three feeds over ``split`` (shuffled as epoch 0):
+    valid rows bit-equal across them; padding rows weigh 0 and carry the
+    split's row 0 in both corpora, zero audio (and no label) in the host
+    feed. Returns the padding rows seen."""
+    row0 = split.collate([0], 1)
+    host_pad = {"audio": 0.0, "labels": text.PAD_ID, "label_paddings": 1.0}
+    pads = 0
+    streams = {k: v[0](np.random.default_rng((SEED, 0))) for k, v in made.items()}
+    for batches in zip(*streams.values()):
+        got = dict(zip(streams, batches))
+        valid = torch.from_numpy(pipeline.host_mask(got["host"]))
+        pads += int((~valid).sum())
+        for feed, b in got.items():
+            check(np.array_equal(b.indices, got["host"].indices), f"feed {name}: {feed} rows")
+            for field in ("audio", "labels", "label_paddings", "weights"):
+                x, h = getattr(b, field).cpu(), getattr(got["host"], field).cpu()
+                check(torch.equal(x[valid], h[valid]), f"feed {name}: {feed} {field} differs")
+                pad = x[~valid]
+                if field == "weights":
+                    want = torch.zeros_like(pad)
+                elif feed == "host":
+                    want = torch.full_like(pad, host_pad[field])
+                else:
+                    want = torch.from_numpy(getattr(row0, field)).expand_as(pad)
+                check(torch.equal(pad, want), f"feed {name}: {feed}'s padding {field}")
+    return pads
+
+
+def phase_feed(dev, card: str, main: dict, anchor: dict) -> dict:
+    """Returns the launch counts of its runs (summed over the ranks for
+    (c))."""
+    t_phase = time.perf_counter()
+    pipe = sweep_pipe()
+    # (a) the feeds alone, on the train split; their batches on every split
+    made = feeds(pipe.train, dev)
+    timed = {name: {**time_feed(batches), "staged_bytes": staged}
+             for name, (batches, staged) in made.items()}
+    pads = {name: check_feed_batches(name, split, made if name == "train" else feeds(split, dev))
+            for name, split in (("train", pipe.train), ("eval", pipe.eval), ("test", pipe.test))}
+    del made
+    torch.cuda.empty_cache()
+    emit({"phase": "feed", "run": "feeds", "batch": MAIN_B, "audio_len": pipe.audio_len,
+          "splits": {"train": len(pipe.train), "eval": len(pipe.eval), "test": len(pipe.test)},
+          "feeds": timed, "padding_rows_checked": pads, "timed_epochs": FEED_EPOCHS,
+          "cached_rows": len(pipe.train) // 2, "card": card})
+    check(pads["eval"] > 0 and pads["test"] > 0, f"feed: no padding rows checked {pads}")
+    check(timed["device"]["h2d_bytes_per_batch"] == MAIN_B * 4,
+          f"feed: the device corpus copied {timed['device']['h2d_bytes_per_batch']} bytes a batch")
+
+    # (b) run_attack on each feed
+    out, runs = {}, {}
+    for feed, flag in (("host", "--no_device_cache"), ("device", "--device_cache")):
+        torch.cuda.reset_peak_memory_stats()
+        res, facts, launches = run_cli(f"feed_{feed}", FEED_ARGV + [flag])
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(facts["run_dir"], "metrics.jsonl")) as f:
+            step_ms = [json.loads(line)["step_time_ms"] for line in f]
+        with open(os.path.join(facts["run_dir"], "train.log")) as f:
+            staged = STAGED_LINE in f.read()
+        want = expected_cli_launches(FEED_ARGV, facts, fm=True, route="_sm90")
+        emit({"phase": "feed", "run": f"run_attack_{feed}", **facts, "flag": flag,
+              "staged": staged, "step_time_ms": step_ms, "main_step_ms": 1e3 * main["step_s"],
+              "step_over_main": step_ms[0] / (1e3 * main["step_s"]),
+              "final_test_clean": res["final_test_clean"],
+              "final_test_perturbed": res["final_test_perturbed"],
+              "peak_mem_bytes": peak, "main_peak_mem_bytes": main["peak"],
+              "launches": launches, "want_launches": want, "card": card})
+        check(res.get("finished_training") is True, f"feed {feed}: the run did not finish")
+        check(staged == (feed == "device"), f"feed {feed}: staged={staged}")
+        check(facts["audio_len"] == sweep_audio_len(),
+              f"feed {feed}: clips of {facts['audio_len']} samples, phase 2 checked "
+              f"{sweep_audio_len()}")
+        check(launches == want, f"feed {feed}: launched {launches}, want {want}")
+        runs[feed], out[f"feed_{feed}"] = res, launches
+    host, device = runs["host"], runs["device"]
+    check(device["final_test_clean"] == host["final_test_clean"],
+          f"feed: clean test {device['final_test_clean']} against {host['final_test_clean']}")
+    g, w = device["final_test_perturbed"], host["final_test_perturbed"]
+    check(abs(g["ctc"] - w["ctc"]) / w["ctc"] <= ANCHOR_TOL["ctc_rel"]
+          and abs(g["wer"] - w["wer"]) <= ANCHOR_TOL["wer_abs"],
+          f"feed: perturbed test {g} against {w}, tolerance {ANCHOR_TOL}")
+
+    # (c) the anchor with dp=2 on the device feed, as phase 9 (c) runs it
+    save_root = os.path.join(RUNS_DIR, "cli_dp_device")
+    shutil.rmtree(save_root, ignore_errors=True)
+    argv = ANCHOR_ARGV + ["--device_cache", "--num_epochs", "1", "--num_items_to_inspect", "0",
+                          "--no_resume", "--save_root", save_root]
+    records, seconds = run_ranks("cli", os.path.join(RUNS_DIR, "parallel_feed"),
+                                 ["--", "paa_tpu_torch.cli.run_attack", *argv])
+    run_dir = [d for d, _, files in os.walk(save_root) if "results.json" in files][0]
+    with open(os.path.join(run_dir, "results.json")) as f:
+        res = json.load(f)
+    with open(os.path.join(run_dir, "train.log")) as f:
+        staged = STAGED_LINE in f.read()
+    facts = run_facts("cli_dp_device", os.path.join(run_dir, "train.log"),
+                      os.path.join(run_dir, "metrics.jsonl"))
+    del facts["metrics"]
+    want = expected_cli_launches(ANCHOR_ARGV, facts, fm=False, route="")
+    hashes = [r["perturbation_sha256"] for r in records]
+    emit({"phase": "feed", "run": "cli_dp_device", "ranks": PAR_RANKS, **facts,
+          "staged": staged, "final_test_clean": res["final_test_clean"],
+          "anchor_final_test_clean": anchor["final_test_clean"],
+          "final_test_perturbed": res["final_test_perturbed"],
+          "p_bit_equal_across_ranks": all(h == hashes[0] for h in hashes) and bool(hashes[0]),
+          "launches": [r["launches"] for r in records], "want_launches_per_rank": want,
+          "launch_seconds": seconds, "card": card})
+    check(res.get("finished_training") is True, "feed cli_dp_device: the run did not finish")
+    check(staged, "feed cli_dp_device: the split was not staged")
+    check(res["final_test_clean"] == anchor["final_test_clean"],
+          f"feed cli_dp_device: clean test {res['final_test_clean']} against phase 6's "
+          f"{anchor['final_test_clean']}")
+    check(len(hashes[0]) == 1 and all(h == hashes[0] for h in hashes),
+          f"feed cli_dp_device: p differs between the ranks {hashes}")
+    check(all(r["launches"] == want for r in records),
+          f"feed cli_dp_device: launched {[r['launches'] for r in records]}, want {want} a rank")
+    check(all(r["jax_modules"] == [] for r in records), "feed cli_dp_device: JAX imported")
+    out["cli_dp_device"] = {k: sum(r["launches"][k] for r in records) for k in want}
+    emit({"phase": "feed", "wall_s": time.perf_counter() - t_phase, "card": card})
+    return out
+
+
 # (row name, launch counter, source, TPU kernel it replaces, runs whose
 # launches it reports, check at those runs' shapes and direction it takes
 # its numbers from). The base sweep's clips are longer than phase 4's, so
-# its K1/K2/K3 rows are its own, with phase 2's numbers at its shapes. The JAX
+# its K1/K2/K3 rows are its own, with phase 2's numbers at its shapes, and
+# count phase 10's run_attack runs on its corpus too. The JAX
 # package's flash kernel (K4) runs where its fused kernel's score tile no
 # longer fits VMEM, T ≥ 774; on the card K1 and K2 cover those lengths, so
 # K4's rows are theirs, counted in lv60. The WMMA routes of K1 and K2
@@ -1293,11 +1490,11 @@ KERNELS = (
      ("main",), "attention", "bwd"),
     ("fm_norm", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU, ("main",), "fm_norm", None),
     ("attention_fwd_sweep", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
-     K1_TPU, ("sweep",), "attention_sweep", "fwd"),
+     K1_TPU, ("sweep", "feed_host", "feed_device"), "attention_sweep", "fwd"),
     ("attention_bwd_sweep", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
-     K2_TPU, ("sweep",), "attention_sweep", "bwd"),
-    ("fm_norm_sweep", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU, ("sweep",),
-     "fm_norm_sweep", None),
+     K2_TPU, ("sweep", "feed_host", "feed_device"), "attention_sweep", "bwd"),
+    ("fm_norm_sweep", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU,
+     ("sweep", "feed_host", "feed_device"), "fm_norm_sweep", None),
     ("flash_attention_fwd", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
      K4_TPU.format("forward"), ("lv60",), "attention_long", "fwd"),
     ("flash_attention_bwd", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
@@ -1328,9 +1525,9 @@ KERNELS = (
     ("fm_norm_parallel", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU, ("par_dp", "par_tp"),
      "fm_norm", None),
     ("attention_fwd_wmma_dp", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
-     ("cli_dp",), "attention_tiny_dp", "fwd"),
+     ("cli_dp", "cli_dp_device"), "attention_tiny_dp", "fwd"),
     ("attention_bwd_wmma_dp", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
-     ("cli_dp",), "attention_tiny_dp", "bwd"),
+     ("cli_dp", "cli_dp_device"), "attention_tiny_dp", "bwd"),
     ("attention_fwd_wmma_tp", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
      ("cli_tp",), "attention_tiny_tp", "fwd"),
     ("attention_bwd_wmma_tp", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
@@ -1386,6 +1583,8 @@ def main() -> int:
     launches.update(phase_pretrain(dev, smi))
     torch.cuda.empty_cache()
     launches.update(phase_parallel(dev, smi, anchor))
+    torch.cuda.empty_cache()
+    launches.update(phase_feed(dev, smi, main_run, anchor))
     # torch.profiler now and then sees no device operation in three traces
     # (once after phases 3-7, once in phase 2): whether it still sees the
     # device is recorded here, not checked

@@ -19,9 +19,12 @@ into a usage error):
   * ``--tp``: Megatron tensor parallelism over the ranks ``torchrun``
     starts (``parallel/``); it must divide the rank count, as in the
     reference (``parallel/mesh.py:decide_mesh`` says so at run time);
-  * ``--no_remat`` and ``--no_device_cache`` state what the port does;
-    ``--remat``, ``--remat_policy``, ``--device_cache``, a ``--conv_impl``
-    other than ``conv`` and ``--device_probe_timeout`` are refused.
+  * ``--device_cache`` / ``--no_device_cache``: the device feed or the host
+    feed (``data/pipeline.py``); without either, auto: the device feed on
+    CUDA, the host feed on the CPU;
+  * ``--no_remat`` states what the port does; ``--remat``,
+    ``--remat_policy``, a ``--conv_impl`` other than ``conv`` and
+    ``--device_probe_timeout`` are refused.
 
 It also turns parsed flags into what a run is built from: the attack
 config, the constraint params and the data pipeline.
@@ -153,9 +156,14 @@ def create_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_pallas_fm", action="store_true",
                         help="refused: the Fletcher-Munson kernel always runs on the card")
     parser.add_argument("--device_cache", action="store_true", default=None,
-                        help="refused: the device-resident corpus is not ported")
+                        help="stage whole data splits in device memory and form "
+                             "batches by on-device gather — zero per-step host "
+                             "audio feed. Default: auto (on for CUDA runs when a "
+                             "split stages under 512 MiB, else its first rows up "
+                             "to that budget; under torchrun every rank stages "
+                             "the whole split on its own card)")
     parser.add_argument("--no_device_cache", action="store_true",
-                        help="feed batches from the host (the port's only feed)")
+                        help="always feed batches from the host")
     parser.add_argument("--save_root", type=str, default=None,
                         help="root dir for run artifacts (default: ./logs)")
     parser.add_argument("--synthetic_samples", type=int, default=512,
@@ -187,9 +195,6 @@ def refusals(args) -> list[str]:
         out.append("--no_pallas_fm: the Fletcher-Munson kernel always runs on the card")
     if args.remat or args.remat_policy is not None:
         out.append("--remat/--remat_policy: remat is not ported (ROADMAP.md, queue 1: remat)")
-    if args.device_cache:
-        out.append("--device_cache: the device-resident corpus is not ported "
-                   "(ROADMAP.md, queue 1: DeviceCorpus and CachedCorpus)")
     if args.conv_impl != "conv":
         out.append(f"--conv_impl {args.conv_impl}: the port has the 'conv' lowering only "
                    "(the others were measured and rejected on the TPU)")
@@ -209,6 +214,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 
 def config_from_args(args) -> AttackConfig:
+    device_cache = getattr(args, "device_cache", None)
+    if getattr(args, "no_device_cache", False):
+        device_cache = False
     return AttackConfig(
         norm_type=args.norm_type,
         attack_mode=args.attack_mode,
@@ -233,7 +241,7 @@ def config_from_args(args) -> AttackConfig:
         accum_steps=args.accum_steps,
         use_pallas_fm=bool(args.use_pallas_fm),
         tp=args.tp,
-        cache_data_on_device=False if args.no_device_cache else None,
+        cache_data_on_device=device_cache,
     )
 
 

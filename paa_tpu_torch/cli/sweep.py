@@ -16,6 +16,9 @@ per-cell semantics:
     rank holds every cell's state after each step, so a rebuild over the
     surviving cells finds each cell's p and optimizer state on its new
     owner;
+  * the feed is the single run's (``AttackRunner``'s, ``--device_cache``
+    or auto), with each split staged once for the whole sweep, every norm
+    and every rebuild over fewer cells included;
   * every cell starts from the perturbation a standalone run with this
     seed starts from (``AttackRunner.init_perturbation``: torch's RNG, then
     the cell's projection);
@@ -175,9 +178,12 @@ def run_sweep(args, device: torch.device | None = None) -> dict:
     if args.epochs_per_cell:
         args.num_epochs = args.epochs_per_cell
 
-    # shared data and model for every cell (the reference re-loads per job)
+    # shared data and model for every cell (the reference re-loads per job);
+    # each split is staged once for the whole sweep
     pipe = parser_lib.pipeline_from_args(args)
     model = run_attack_cli.load_model(args, device)
+    corpora = pipeline_lib.CorpusCache(parser_lib.config_from_args(args).cache_data_on_device,
+                                       device)
 
     summary = {}
     root = args.save_root or os.path.join(os.getcwd(), "logs")
@@ -188,7 +194,7 @@ def run_sweep(args, device: torch.device | None = None) -> dict:
         if not sizes:
             continue
         summary[norm_type] = _run_norm_sweep(
-            args, norm_type, [float(s) for s in sizes], pipe, model, root)
+            args, norm_type, [float(s) for s in sizes], pipe, model, root, corpora)
 
     out_path = os.path.join(root, "sweep_results.json")
     if mesh_lib.is_writer():
@@ -198,7 +204,7 @@ def run_sweep(args, device: torch.device | None = None) -> dict:
     return summary
 
 
-def _run_norm_sweep(args, norm_type, sizes, pipe, model, root) -> dict:
+def _run_norm_sweep(args, norm_type, sizes, pipe, model, root, corpora) -> dict:
     """All epsilons of one norm type, each cell a full attack run
     (reference: one SLURM job per cell running run_attack.py:13-279)."""
     log = logging.getLogger("paa_tpu")
@@ -228,8 +234,9 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root) -> dict:
 
     # the runner's feed, targeted labels, clean eval and inspection are the
     # single run's, over the first mesh's data axis; the sweep adds the
-    # per-cell steps
-    runner = loop.AttackRunner(cfg, model, pipe, base, mesh=mesh_for(S))
+    # per-cell steps. Every rank stages the whole split, so the feed does not
+    # change when the cells are rebuilt over another mesh.
+    runner = loop.AttackRunner(cfg, model, pipe, base, mesh=mesh_for(S), corpora=corpora)
 
     def program(s_dev: int) -> tuple:
         """(train step, eval step) for ``s_dev`` cells."""

@@ -32,11 +32,12 @@ OPTIMIZER_TYPES = ("pgd", "adam")
 class AttackConfig:
     """Static attack facts (reference: ``paa_tpu/config.py:41-140``).
 
-    The fields that steer TPU-only machinery (``remat``, ``use_pallas_fm``,
-    ``tp``, ``cache_data_on_device``) are kept so that one configuration
-    describes a run in both packages. The port's step rejects the values it
-    does not run yet (``accum_steps > 1``, ``tp > 1``); it picks the
-    Fletcher-Munson kernel by the tensor's device, not by ``use_pallas_fm``.
+    ``remat`` and ``use_pallas_fm`` steer TPU-only machinery and are kept so
+    that one configuration describes a run in both packages: the port has no
+    remat, and it picks the Fletcher-Munson kernel by the tensor's device, not
+    by ``use_pallas_fm``. ``tp`` sizes the model axis under ``torchrun``, and
+    ``cache_data_on_device`` picks the feed (True, False or None for auto;
+    ``data/pipeline.py:device_feed_kind``), as in the JAX package.
     """
 
     # attack

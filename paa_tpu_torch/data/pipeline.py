@@ -1,10 +1,9 @@
 """Batching pipeline: length filter, splits, fixed-shape collate, and the
-copy of each batch to the device.
+two feeds that bring batches to the device.
 
-The port's copy of the host feed of ``paa_tpu/data/pipeline.py:35-237``
-(that module imports JAX). The numpy code is the same, so batches and their
-shuffles, drawn from the same numpy generators, are bit-identical to the JAX
-feed's (a test compares them):
+The port of ``paa_tpu/data/pipeline.py`` (that module imports JAX). The
+numpy code is the same, so batches and their shuffles, drawn from the same
+numpy generators, are bit-identical to the JAX feed's (a test compares them):
 
   * length statistics from the first 300 samples; lengths kept within the
     [q10, q(relative_audio_length)] window;
@@ -14,16 +13,30 @@ feed's (a test compares them):
   * labels tokenized once per split; the last partial batch padded to the
     batch shape with weight-0 rows.
 
-:func:`to_device` copies a host batch to the card through pinned memory
-with a non-blocking copy. Under data parallelism the feed stays global and
-bit-exact on every rank; :func:`shard_rows` gives a rank its rows. The device-resident corpora of the JAX package
-(``DeviceCorpus``, ``CachedCorpus``) are not ported yet (ROADMAP.md,
-queue 1: DeviceCorpus and CachedCorpus).
+The host feed collates each batch on the host and :func:`to_device` copies
+it to the card through pinned memory with a non-blocking copy
+(:func:`prefetch_to_device` keeps two batches in flight). The device feed
+stages a split on the card once and forms each batch there by gather
+(:class:`DeviceCorpus`, or :class:`CachedCorpus` when only the first rows fit
+the budget); :class:`CorpusCache` resolves the ``cache_data_on_device``
+tri-state per split. The device feed pads a short final batch with copies of
+row 0, the host feed with zero rows, as in the JAX package: both carry weight
+0, but snr and tv size their ball from the whole clean batch, so the two
+feeds end an epoch on different p for those norms.
+
+Under data parallelism every rank feeds the same global batches, bit-exact,
+and :func:`shard_rows` gives a rank its rows. The JAX package shards the
+staged corpus over the mesh's ``data`` axis and lets XLA insert the gather
+collectives; here every rank stages the whole split (or its cache) on its
+own card and gathers the global batch, which needs no collective per step.
+The batches are the same; only the memory differs.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import logging
 import math
 from typing import Iterator, NamedTuple, Sequence
 
@@ -31,6 +44,16 @@ import numpy as np
 import torch
 
 from paa_tpu_torch.ops import text as text_ops
+
+logger = logging.getLogger("paa_tpu")
+
+# Host→device traffic of the feeds since the last reset_h2d(): bytes and
+# copies. Counted on the CPU too, where the copy is a no-op.
+h2d = {"bytes": 0, "copies": 0}
+
+
+def reset_h2d() -> None:
+    h2d.update(bytes=0, copies=0)
 
 
 class Batch(NamedTuple):
@@ -50,19 +73,32 @@ def host_mask(batch: Batch) -> np.ndarray:
     return np.asarray(w) > 0
 
 
+def _host(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A zeroed host buffer for a copy to ``device``: pinned for a CUDA
+    device."""
+    return torch.zeros(shape, dtype=dtype, pin_memory=device.type == "cuda")
+
+
+def _put(a, device: torch.device) -> torch.Tensor:
+    """``a`` (a numpy array or a host tensor) on ``device``: on a CUDA device
+    through pinned host memory with a non-blocking copy, so that the copy
+    overlaps the work already queued on the card."""
+    t = torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
+    h2d["bytes"] += t.nbytes
+    h2d["copies"] += 1
+    if device.type == "cuda":
+        if not t.is_pinned():
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
+    return t.to(device)
+
+
 def to_device(batch: Batch, device: torch.device) -> Batch:
-    """The batch's arrays as tensors on ``device``: on a CUDA device through
-    pinned host memory with a non-blocking copy, so that the copy overlaps
-    the work already queued on the card."""
-
-    def put(a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t.to(device)
-
-    return Batch(put(batch.audio), put(batch.labels), put(batch.label_paddings),
-                 put(batch.weights), batch.indices, host_weights=np.asarray(batch.weights))
+    """The batch's arrays as tensors on ``device`` (see :func:`_put`); the
+    weights stay on the host too, as ``host_weights``."""
+    return Batch(_put(batch.audio, device), _put(batch.labels, device),
+                 _put(batch.label_paddings, device), _put(batch.weights, device),
+                 batch.indices, host_weights=np.asarray(batch.weights))
 
 
 def shard_rows(x, n: int, r: int):
@@ -234,3 +270,248 @@ def build_pipeline(
         test=_make_split(groups["test"], text_groups["test"], audio_len, label_len),
         audio_len=audio_len,
     )
+
+
+def row_bytes(split: Split) -> int:
+    """Bytes a staged row takes: its audio, labels and label paddings."""
+    L = split.labels.shape[1]
+    return split.audio_len * 4 + split.labels.itemsize * L + 4 * L
+
+
+def _fill_audio(split: Split, rows, out: np.ndarray) -> np.ndarray:
+    """Rows ``rows`` of the split's audio into ``out``, each cropped or
+    zero-padded to the clip length, as :meth:`Split.collate` does."""
+    T = split.audio_len
+    for j, i in enumerate(rows):
+        w = split.waveforms[i]
+        n = min(len(w), T)
+        out[j, :n] = w[:n]
+    return out
+
+
+def _stage(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A staged array on ``device``: one blocking copy from pageable memory
+    (pinning a corpus-sized buffer costs more than it saves, once)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _gather_rows(audio, labels, pads, rows):
+    """A batch from the staged rows: a padding row (−1) gathers row 0 and
+    weighs 0."""
+    safe = rows.clamp(min=0)
+    return (audio.index_select(0, safe), labels.index_select(0, safe),
+            pads.index_select(0, safe), (rows >= 0).to(torch.float32))
+
+
+class DeviceCorpus:
+    """A split staged on the device once; batches form there by gather.
+
+    Each batch then moves only a ``(B,)`` int32 row vector to the device,
+    through pinned memory, instead of its ``(B, T)`` audio. Padding rows of
+    a short final batch gather row 0 with weight 0, as the JAX package's
+    ``_gather_rows_fn`` does: the step's loss and metrics are weighted, so
+    they contribute nothing there, but snr and tv size their ball from the
+    whole clean batch, row 0's copies included.
+
+    ``mesh`` changes nothing in what is staged: every rank of a data axis
+    stages the whole split and gathers the global batch, and the sharded
+    steps take their rows of it (module docstring).
+    """
+
+    def __init__(self, split: Split, device: torch.device, mesh=None):
+        N, T = len(split), split.audio_len
+        self.split, self.device, self.mesh = split, device, mesh
+        self.audio = _stage(_fill_audio(split, range(N), np.zeros((N, T), np.float32)), device)
+        self.labels = _stage(split.labels, device)
+        self.label_paddings = _stage(split.label_paddings, device)
+        self.staged_bytes = sum(t.nbytes for t in (self.audio, self.labels,
+                                                   self.label_paddings))
+
+    @staticmethod
+    def nbytes(split: Split) -> int:
+        return (len(split) * split.audio_len * 4 + split.labels.nbytes
+                + split.label_paddings.nbytes)
+
+    def batches(self, batch_size: int, shuffle_rng: np.random.Generator | None = None,
+                drop_remainder: bool = False) -> Iterator[Batch]:
+        for rows in _batch_rows(len(self.split), batch_size, shuffle_rng, drop_remainder):
+            audio, labels, pads, weights = _gather_rows(
+                self.audio, self.labels, self.label_paddings, _put(rows, self.device))
+            yield Batch(audio, labels, pads, weights, rows, (rows >= 0).astype(np.float32))
+
+
+class CachedCorpus:
+    """The device feed for a split past the resident budget: the first ``C``
+    rows (all that ``cache_bytes`` holds, at least one) stay on the device,
+    and each batch copies only its rows past them, one batch ahead, through
+    pinned memory with non-blocking copies.
+
+    The device assembles each batch from two gathers and a select, as the
+    JAX package's ``_combine_cached_fn`` does, so its batches equal
+    :class:`DeviceCorpus`'s bit for bit, padding rows included: a ``-1``
+    row selects cache row 0. A batch whose rows are all resident reuses one
+    staged one-row buffer, so a fully resident epoch moves no audio bytes.
+    The JAX package pads each miss buffer to a multiple of ``MISS_BUCKET``
+    rows to bound the number of XLA programs; eager PyTorch compiles none,
+    so here a miss buffer holds the batch's missing rows and no more.
+
+    ``mesh`` changes nothing in what is staged (see :class:`DeviceCorpus`).
+    """
+
+    def __init__(self, split: Split, cache_bytes: int, device: torch.device, mesh=None):
+        N, T = len(split), split.audio_len
+        C = max(1, min(N, int(cache_bytes) // row_bytes(split)))
+        self.split, self.device, self.mesh, self.n_cached = split, device, mesh, C
+        self.audio = _stage(_fill_audio(split, range(C), np.zeros((C, T), np.float32)), device)
+        self.labels = _stage(split.labels[:C], device)
+        self.label_paddings = _stage(split.label_paddings[:C], device)
+        self.staged_bytes = sum(t.nbytes for t in (self.audio, self.labels,
+                                                   self.label_paddings))
+        self._zero_miss = None  # staged once, reused for all-hit batches
+
+    def _stage_miss(self, rows: np.ndarray) -> tuple:
+        """Batch ``rows``' miss buffer on the device, its (3, B) index
+        vectors (rows, cache rows, miss rows) on the device, and ``rows``."""
+        split, C, dev = self.split, self.n_cached, self.device
+        use_miss = rows >= C
+        miss_rows = rows[use_miss]
+        m = len(miss_rows)
+        index = _host((3, len(rows)), torch.int32, dev)
+        idx = index.numpy()
+        idx[0] = rows
+        idx[1] = np.where(use_miss, 0, np.maximum(rows, 0))
+        idx[2][use_miss] = np.arange(m, dtype=np.int32)
+        if m == 0:
+            if self._zero_miss is None:
+                L = split.labels.shape[1]
+                self._zero_miss = (_put(np.zeros((1, split.audio_len), np.float32), dev),
+                                   _put(np.zeros((1, L), split.labels.dtype), dev),
+                                   _put(np.ones((1, L), np.float32), dev))
+            miss = self._zero_miss
+        else:
+            audio = _host((m, split.audio_len), torch.float32, dev)
+            _fill_audio(split, miss_rows, audio.numpy())
+            miss = (_put(audio, dev), _put(split.labels[miss_rows], dev),
+                    _put(split.label_paddings[miss_rows], dev))
+        return miss, _put(index, dev), rows
+
+    def _combine(self, miss, index) -> tuple:
+        rows, sel_cache, sel_miss = index
+        use_miss = (rows >= self.n_cached)[:, None]
+        pick = lambda cached, missed: torch.where(
+            use_miss, missed.index_select(0, sel_miss), cached.index_select(0, sel_cache))
+        return (pick(self.audio, miss[0]), pick(self.labels, miss[1]),
+                pick(self.label_paddings, miss[2]), (rows >= 0).to(torch.float32))
+
+    def batches(self, batch_size: int, shuffle_rng: np.random.Generator | None = None,
+                drop_remainder: bool = False) -> Iterator[Batch]:
+        queue = collections.deque()
+
+        def emit(staged) -> Batch:
+            miss, index, rows = staged
+            audio, labels, pads, weights = self._combine(miss, index)
+            return Batch(audio, labels, pads, weights, rows, (rows >= 0).astype(np.float32))
+
+        for rows in _batch_rows(len(self.split), batch_size, shuffle_rng, drop_remainder):
+            queue.append(self._stage_miss(rows))
+            if len(queue) >= 2:
+                yield emit(queue.popleft())
+        while queue:
+            yield emit(queue.popleft())
+
+
+_DEVICE_CACHE_AUTO_LIMIT = 512 << 20  # bytes per device
+
+
+def device_feed_kind(split: Split, enable: bool | None, device: torch.device) -> str | None:
+    """The ``cache_data_on_device`` tri-state for one split: ``"device"``
+    (:class:`DeviceCorpus`), ``"cached"`` (:class:`CachedCorpus` at the
+    auto budget) or None (the host feed).
+
+    ``False`` keeps the host feed; ``True`` stages the whole split on any
+    device. ``None`` (auto) is the JAX package's rule with its TPU read as
+    CUDA: on a CUDA device the whole split when it stages in at most
+    ``_DEVICE_CACHE_AUTO_LIMIT`` bytes, else the rows that budget holds; on
+    the CPU the host feed. The JAX package divides the split over its data
+    axis before the comparison; here every rank stages the whole split, so
+    its share per device is the whole split."""
+    if enable is False:
+        return None
+    if enable is None:
+        if device.type != "cuda":
+            return None
+        if DeviceCorpus.nbytes(split) > _DEVICE_CACHE_AUTO_LIMIT:
+            return "cached"
+    return "device"
+
+
+def maybe_device_corpus(split: Split, enable: bool | None, device: torch.device,
+                        mesh=None) -> DeviceCorpus | CachedCorpus | None:
+    """The split staged as :func:`device_feed_kind` decides, or None for the
+    host feed. A staging that fails raises: no feed falls back to the host."""
+    kind = device_feed_kind(split, enable, device)
+    if kind == "cached":
+        return CachedCorpus(split, _DEVICE_CACHE_AUTO_LIMIT, device, mesh=mesh)
+    if kind == "device":
+        return DeviceCorpus(split, device, mesh=mesh)
+    return None
+
+
+def batch_source(split: Split, batch_size: int, corpus: DeviceCorpus | CachedCorpus | None,
+                 device: torch.device,
+                 shuffle_rng: np.random.Generator | None = None) -> Iterator[Batch]:
+    """Batches gathered on the device when a corpus is staged, else host
+    collate and prefetch: one call site for both feeds."""
+    if corpus is not None:
+        return corpus.batches(batch_size, shuffle_rng=shuffle_rng)
+    return prefetch_to_device(split.batches(batch_size, shuffle_rng=shuffle_rng), device)
+
+
+class CorpusCache:
+    """Stages each split once under the ``cache_data_on_device`` tri-state,
+    at its first use, keyed by the split's identity: the one home of the
+    policy and its log lines for the single run (train/loop.py) and the
+    sweep (cli/sweep.py)."""
+
+    def __init__(self, enable: bool | None, device: torch.device, mesh=None):
+        self._enable, self._device, self._mesh = enable, device, mesh
+        self._corpora: dict[int, tuple] = {}  # id(split) → (split, its corpus or None)
+
+    def corpus(self, split: Split) -> DeviceCorpus | CachedCorpus | None:
+        key = id(split)
+        if key not in self._corpora:
+            c = maybe_device_corpus(split, self._enable, self._device, mesh=self._mesh)
+            if isinstance(c, CachedCorpus):
+                logger.info(
+                    "split exceeds the resident-HBM budget (%d clips, %.0f MB) "
+                    "— caching the first %d rows on device (%.0f%%), host-"
+                    "filling only the overflow per batch",
+                    len(split), DeviceCorpus.nbytes(split) / 1e6,
+                    c.n_cached, 100.0 * c.n_cached / len(split))
+            elif c is not None:
+                logger.info(
+                    "staged split to device HBM: %d clips, %.0f MB — batches "
+                    "now form by on-device gather",
+                    len(split), DeviceCorpus.nbytes(split) / 1e6)
+            self._corpora[key] = (split, c)
+        return self._corpora[key][1]
+
+    def batches(self, split: Split, batch_size: int,
+                shuffle_rng: np.random.Generator | None = None) -> Iterator[Batch]:
+        return batch_source(split, batch_size, self.corpus(split), self._device,
+                            shuffle_rng=shuffle_rng)
+
+
+def prefetch_to_device(iterator: Iterator[Batch], device: torch.device,
+                       size: int = 2) -> Iterator[Batch]:
+    """Host batches on ``device`` (:func:`to_device`), copied ``size - 1``
+    batches ahead of the one consumed, so that a batch's copy is queued
+    while the host still collates the next; ``host_weights`` keeps the
+    weights on the host."""
+    queue = collections.deque()
+    for batch in iterator:
+        queue.append(to_device(batch, device))
+        if len(queue) >= size:
+            yield queue.popleft()
+    while queue:
+        yield queue.popleft()

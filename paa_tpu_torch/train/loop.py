@@ -17,7 +17,8 @@ step:
 
 Under ``torchrun`` the runner takes its mesh from ``decide_mesh`` (the
 reference's mesh branches): dp, or dp × tp with the model sharded on the
-``model`` axis; every rank feeds the same global batches and runs the
+``model`` axis; every rank feeds the same global batches (under the device
+feed, each from its own staged copy of the split) and runs the
 sharded steps, and their metrics are global on every rank. The initial p
 is broadcast from rank 0, the early-stop decision is rank 0's on every
 rank, every rank reads the checkpoint on resume, and only rank 0 writes the
@@ -166,11 +167,17 @@ class AttackRunner:
     cfg.batch_size)`` over the world's ranks (``tp > 1`` checks the model
     axis first); None runs the one-device steps; a mesh with a ``data``
     axis (the sweep passes its own) shards the batch over it. On a mesh
-    with a ``model`` axis the runner keeps this rank's shard of ``model``."""
+    with a ``model`` axis the runner keeps this rank's shard of ``model``.
+
+    The train and eval batches come from ``corpora`` (default: a
+    :class:`~paa_tpu_torch.data.pipeline.CorpusCache` of its own under
+    ``cfg.cache_data_on_device``; the sweep passes one for all its norms);
+    the initial perturbation and the inspected samples collate on the host,
+    as in the JAX package."""
 
     def __init__(self, cfg: AttackConfig, model: torch.nn.Module,
                  pipe: pipeline_lib.DataPipeline, cparams: ConstraintParams | None = None,
-                 mesh="auto"):
+                 mesh="auto", corpora: pipeline_lib.CorpusCache | None = None):
         if isinstance(mesh, str):
             if cfg.tp > 1:
                 tp_lib.check_model_axis(wav2vec2.get_config(cfg.model_name), cfg.tp)
@@ -187,6 +194,9 @@ class AttackRunner:
         self.eval_step = attack_step.make_sharded_eval_step(cfg, self.model, mesh)
         if mesh is not None:
             logger.info("mesh %s over %d ranks", mesh.shape, mesh.size)
+        # each split staged at its first use under cfg.cache_data_on_device
+        self.corpora = corpora if corpora is not None else pipeline_lib.CorpusCache(
+            cfg.cache_data_on_device, self.device, mesh=mesh)
         self._tgt = None
         if cfg.attack_mode == "targeted":
             tl, tp = _targeted_labels(cfg, cfg.batch_size, pipe.train.labels.shape[1],
@@ -195,8 +205,7 @@ class AttackRunner:
                          torch.from_numpy(tp).to(self.device))
 
     def _batches(self, split: pipeline_lib.Split, shuffle_rng=None):
-        for batch in split.batches(self.cfg.batch_size, shuffle_rng=shuffle_rng):
-            yield pipeline_lib.to_device(batch, self.device)
+        return self.corpora.batches(split, self.cfg.batch_size, shuffle_rng=shuffle_rng)
 
     def _labels(self, batch):
         return self._tgt if self._tgt is not None else (batch.labels, batch.label_paddings)

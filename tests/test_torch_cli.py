@@ -43,8 +43,9 @@ ARGVS = [
 ]
 
 
-@pytest.mark.parametrize("argv", ARGVS, ids=["defaults", "reference_flags", "targeted_snr",
-                                             "lv60_long"])
+@pytest.mark.parametrize("argv", ARGVS + [["--device_cache"]],
+                         ids=["defaults", "reference_flags", "targeted_snr", "lv60_long",
+                              "device_cache"])
 def test_same_argv_same_config(argv):
     jargs = jparser.create_arg_parser().parse_args(argv)
     targs = tparser.parse_args(argv)
@@ -69,7 +70,6 @@ def test_same_argv_same_config(argv):
     ["--no_pallas_fm"],
     ["--remat"],
     ["--remat_policy", "save_cheap"],
-    ["--device_cache"],
     ["--conv_impl", "hybrid"],
     ["--device_probe_timeout", "60"],
     ["--conv_impl", "im2col"],
@@ -81,6 +81,18 @@ def test_tpu_only_flags_are_refused(argv, capsys):
         tparser.parse_args(argv)
     assert e.value.code == 2
     assert argv[0] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("entry", ["run_attack", "sweep"])
+@pytest.mark.parametrize("argv,want", [(["--device_cache"], True),
+                                       (["--no_device_cache"], False), ([], None)],
+                         ids=["device_cache", "no_device_cache", "auto"])
+def test_device_cache_flag_resolves(entry, argv, want):
+    """``--device_cache`` parses on both entry points and stages the splits
+    (True), ``--no_device_cache`` keeps the host feed (False), and without
+    either the feed is decided by the device (None)."""
+    parse = tparser.parse_args if entry == "run_attack" else tsweep.parse_args
+    assert tparser.config_from_args(parse(argv)).cache_data_on_device is want
 
 
 @pytest.mark.parametrize("tp", [2, 3])

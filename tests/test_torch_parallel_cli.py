@@ -49,6 +49,9 @@ SWEEPS = {"two_cells": ["--grid", json.dumps({"linf": [5e-3, 2e-2]}), "--num_epo
 # name → (module, argv); "resumed" first runs "interrupted"'s epoch, then 2
 LAUNCHES = {
     "dp": ("run_attack", RUN + ["--num_epochs", "2"]),
+    # every rank stages the splits on its own device and gathers the global
+    # batch; fletcher_munson never reads the padding rows the feeds differ in
+    "dp_device_cache": ("run_attack", RUN + ["--num_epochs", "2", "--device_cache"]),
     "tp": ("run_attack", RUN + ["--num_epochs", "2", "--tp", "2"]),
     "interrupted": ("run_attack", RUN + ["--num_epochs", "1"]),
     "sweep_two_cells": ("sweep", SWEEP + SWEEPS["two_cells"]),
@@ -123,10 +126,11 @@ def _results(root: str) -> dict:
     return json.load(open(os.path.join(_run_dir(root), "results.json")))
 
 
-@pytest.mark.parametrize("name", ["dp", "tp"])
+@pytest.mark.parametrize("name", ["dp", "tp", "dp_device_cache"])
 def test_run_attack_on_two_ranks_matches_one_process(runs, name):
-    """dp=2 (the batch split) and --tp 2 (the heads split): clean test
-    scores equal, perturbed within 1e-5 relative."""
+    """dp=2 (the batch split), --tp 2 (the heads split) and dp=2 on the
+    device feed, against one process on the host feed: clean test scores
+    equal, perturbed within 1e-5 relative."""
     two, one = runs
     got, want = _results(two[name][0]), _results(one["dp"])
     assert got["finished_training"] is True
@@ -134,6 +138,9 @@ def test_run_attack_on_two_ranks_matches_one_process(runs, name):
     for key in ("final_test_perturbed", "eval_score_perturbed"):
         np.testing.assert_allclose([got[key]["ctc"], got[key]["wer"]],
                                    [want[key]["ctc"], want[key]["wer"]], rtol=1e-5)
+    staged = "staged split to device" in open(os.path.join(_run_dir(two[name][0]),
+                                                           "train.log")).read()
+    assert staged == (name == "dp_device_cache")
     np.testing.assert_allclose(np.load(os.path.join(_run_dir(two[name][0]), "perturbation.npy")),
                                np.load(os.path.join(_run_dir(one["dp"]), "perturbation.npy")),
                                rtol=1e-5, atol=1e-7)

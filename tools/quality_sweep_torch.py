@@ -2,6 +2,7 @@
 beside the JAX record.
 
     python3 tools/quality_sweep_torch.py [--platform cpu] [--epochs N] [--samples N]
+                                         [--device_cache | --no_device_cache]
 
 Runs ``python -m paa_tpu_torch.cli.sweep`` with the flags of
 ``benchmarks/quality_r5/README.md`` "Optimizer axis" (the committed tiny
@@ -14,6 +15,10 @@ test scores, then one line with the sweep's wall time and cell steps/s and
 the device. The port draws its initial perturbation from torch's RNG, the
 JAX package from ``jax.random``, so the two agree in level, not bit for bit.
 Without ``--platform cpu`` it runs on the GPU and fails without one.
+``--device_cache`` and ``--no_device_cache`` pass through to the sweep
+(default: its auto, the device feed on the GPU and the host feed on the
+CPU); the last line names the feed that ran, as the sweep's log states it.
+The JAX record ran on its device corpus, whose padding rows snr and tv read.
 """
 
 from __future__ import annotations
@@ -37,6 +42,9 @@ def main() -> int:
     ap.add_argument("--epochs", type=int, default=12)
     ap.add_argument("--samples", type=int, default=2048)
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "quality_sweep"))
+    feed = ap.add_mutually_exclusive_group()
+    feed.add_argument("--device_cache", action="store_true")
+    feed.add_argument("--no_device_cache", action="store_true")
     args = ap.parse_args()
     if args.platform == "cuda":
         import torch
@@ -55,6 +63,8 @@ def main() -> int:
            "--epochs_per_cell", str(args.epochs), "--early_stopping", "4",
            "--norms", ",".join(GRID), "--grid", json.dumps(GRID), "--num_items_to_inspect", "0",
            "--save_root", args.out, "--no_resume"]
+    cmd += ["--device_cache"] if args.device_cache else []
+    cmd += ["--no_device_cache"] if args.no_device_cache else []
     t0 = time.perf_counter()
     run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True)
     wall = time.perf_counter() - t0
@@ -73,8 +83,12 @@ def main() -> int:
                           "port_cell_steps_per_sec": port[norm]["cell_steps_per_sec"],
                           "port_n_cell_steps": port[norm]["n_cell_steps"],
                           "jax_n_cell_steps": record[norm]["n_cell_steps"]}))
+    with open(os.path.join(args.out, "sweep.log")) as f:
+        log = f.read()
+    feed = ("device" if "staged split to device" in log else
+            "cached" if "caching the first" in log else "host")
     print(json.dumps({"wall_s": wall, "device": device, "epochs": args.epochs,
-                      "samples": args.samples}))
+                      "samples": args.samples, "feed": feed}))
     return 0
 
 
