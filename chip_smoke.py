@@ -68,7 +68,7 @@ line:
                finite, the step time (steps 2-4) and peak; its export,
                loaded into a fresh model, gives the kept best weights'
                logits exactly. (b) the tiny checkpoint's recipe (float32,
-               the WMMA route): the loss halves, the best eval WER is below
+               the register route): the loss halves, the best eval WER is below
                1, the export reproduces the test WER exactly, beside the
                JAX record. (c) the committed checkpoint through the port's
                ``evaluate_wer`` gives its recorded eval WER exactly.
@@ -109,7 +109,7 @@ line:
                ranks. Phases 6, 7 and 9 run on the device feed too, the
                default on CUDA.
 
-Then K1/K2's WMMA route (head dim 16) at the anchor's shape, the kernels
+Then K1/K2's register route (head dim 16) at the anchor's shape, the kernels
 line ``{"kernels": [...]}`` (per kernel and the runs it counts: launches in
 them, the shape it was checked at, error, ms, the plain version's ms, the
 bound and what sets it, the PyTorch call's ms), and
@@ -184,8 +184,9 @@ def load_tool(name: str):
     return module
 
 
-# K3's device timer (a CUDA graph of 100 calls) and its device operations
-# (the nodes of a CUDA graph of one call, and torch.profiler's names)
+# the device timer of K3 and the attention checks (a CUDA graph of 100
+# calls), and K3's device operations (the nodes of a CUDA graph of one call,
+# and torch.profiler's names)
 fm_profile = load_tool("fm_norm_profile")
 
 
@@ -211,7 +212,9 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls, by CUDA events:
+    the caller's view, host launch work included where it exceeds the
+    device's."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -282,18 +285,32 @@ def check_attention(B, T, H, d, dtype, dev, iters=20) -> dict:
     out["bwd_ms"] = time_ms(lambda: attention.attention_bwd(q, k, v, o, lse, do, H), iters)
     out["bwd_plain_ms"] = time_ms(
         lambda: attention.attention_bwd_plain(q, k, v, o, lse, do, H), iters)
+    # the device's own time: a CUDA graph of 5·iters (100) wrapper calls,
+    # replayed 5 times
+    calls = 5 * iters
+    out["fwd_device_ms"] = fm_profile.graph_ms(lambda: attention.attention_fwd(q, k, v, H), calls)
+    out["bwd_device_ms"] = fm_profile.graph_ms(
+        lambda: attention.attention_bwd(q, k, v, o, lse, do, H), calls)
     # one PyTorch call for the same function, as a yardstick only (the port
     # never calls it): SDPA's forward, and its backward alone, replayed on
-    # one saved forward
+    # one saved forward; each also as a CUDA graph of as many calls, the
+    # backward's captured on the stream its forward ran on
     sdpa = torch.nn.functional.scaled_dot_product_attention
     to_bhtd = lambda t: t.view(B, T, H, d).transpose(1, 2).detach().requires_grad_(True)
     qs, ks, vs = to_bhtd(q), to_bhtd(k), to_bhtd(v)
     dos = do.view(B, T, H, d).transpose(1, 2)
     with torch.no_grad():
         out["fwd_library_ms"] = time_ms(lambda: sdpa(qs, ks, vs, scale=1.0), iters)
-    ys = sdpa(qs, ks, vs, scale=1.0)
-    out["bwd_library_ms"] = time_ms(
-        lambda: torch.autograd.grad(ys, (qs, ks, vs), dos, retain_graph=True), iters)
+        out["fwd_library_device_ms"] = fm_profile.graph_ms(lambda: sdpa(qs, ks, vs, scale=1.0),
+                                                           calls)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ys = sdpa(qs, ks, vs, scale=1.0)
+    torch.cuda.current_stream().wait_stream(side)
+    sdpa_bwd = lambda: torch.autograd.grad(ys, (qs, ks, vs), dos, retain_graph=True)
+    out["bwd_library_ms"] = time_ms(sdpa_bwd, iters)
+    out["bwd_library_device_ms"] = fm_profile.graph_ms(sdpa_bwd, calls, stream=side)
     out.update(attention_bounds(B, T, H, d, dtype))
     out["failed"] = fail
     emit(out)
@@ -367,7 +384,11 @@ def phase_kernels(dev) -> dict:
     at_main = {"attention": check_attention(MAIN_B, 499, 12, 64, torch.bfloat16, dev),
                # one lv60 microbatch: B/A rows × 20 s
                "attention_long": check_attention(LV60_B // LV60_ACCUM, 999, 16, 64,
-                                                 torch.bfloat16, dev)}
+                                                 torch.bfloat16, dev),
+               # base under --compute_dtype float32: the register route at
+               # full width
+               "attention_base_f32": check_attention(MAIN_B, 499, 12, 64, torch.float32, dev,
+                                                     iters=5)}
 
     cfg = AttackConfig(norm_type="fletcher_munson")
     tables = psycho.build_tables(cfg, dev)
@@ -399,7 +420,7 @@ def phase_kernels(dev) -> dict:
         12, 64, torch.bfloat16, dev)
     at_main["fm_norm_sweep"] = check_fm(stft(sweep_len), tables, "sweep")
     # the pretraining batches of phase 8: base (bf16, the Hopper route) and
-    # the tiny recipe (float32, the WMMA route), at their corpora's lengths
+    # the tiny recipe (float32, the register route), at their corpora's lengths
     at_main["attention_pretrain"] = check_attention(
         32, pretrain_frames(PRETRAIN_BASE_ARGV), 12, 64, torch.bfloat16, dev)
     at_main["attention_pretrain_tiny"] = check_attention(
@@ -476,7 +497,7 @@ def phase_tiny(dev) -> None:
     # the gradient, the train step and the eval step each run the layers
     # forward; the first two also backward; the train step projects once
     L = wav2vec2.get_config("wav2vec2-tiny").num_hidden_layers
-    # float32, head dim 16: the WMMA route of K1/K2
+    # float32, head dim 16: the register route of K1/K2
     check(launched == counts(attention_fwd=3 * L, attention_bwd=2 * L, fm_norm=1),
           f"tiny: kernel launches on the card {launched}")
 
@@ -644,7 +665,7 @@ def expected_cli_launches(argv: list[str], facts: dict, fm: bool, route: str,
     projects once; the clean eval runs once, the perturbed eval once per
     cell and epoch, the test split clean once and perturbed once per cell;
     each cell's initial perturbation is projected once. ``route`` is the
-    suffix of the attention counters ("" for WMMA, "_sm90" for wgmma)."""
+    suffix of the attention counters ("" for the register route, "_sm90" for wgmma)."""
     args = parser.create_arg_parser().parse_known_args(argv)[0]
     A = args.accum_steps
     L = wav2vec2.get_config(args.model).num_hidden_layers
@@ -826,7 +847,7 @@ def phase_sweep(card: str, main: dict, anchor: dict) -> dict:
     p_diff = float(np.abs(p_sweep - p_run).max())
     p_close = bool(np.allclose(p_sweep, p_run, **ONE_CELL_TOL))
     want = expected_cli_launches(ANCHOR_SWEEP_ARGV, facts, fm=False, route="")
-    # the same clips as phase 6's anchor: the WMMA check at the anchor's
+    # the same clips as phase 6's anchor: the register-route check at the anchor's
     # frames covers this run's shapes too
     check(facts["audio_len"] == anchor["audio_len"],
           f"sweep anchor: clips of {facts['audio_len']} samples, the anchor's {anchor['audio_len']}")
@@ -984,7 +1005,7 @@ def phase_pretrain(dev, card: str) -> dict:
     cfg, pipe = pretrain_corpus(tuple(PRETRAIN_TINY_ARGV))
     record, tiny_launches, seconds, ckpt = run_pretrain("pretrain_tiny", PRETRAIN_TINY_ARGV)
     history = record["history"]
-    want = pretrain_launches(cfg, pipe, history, "")  # float32: the WMMA route
+    want = pretrain_launches(cfg, pipe, history, "")  # float32: the register route
     model = fresh_model(cfg.model, checkpoint_io.load_safetensors(ckpt), dev)
     reload_wer, _ = pretrain.evaluate_wer(pretrain.make_logits_fn(model), pipe.test,
                                           cfg.batch_size)
@@ -1476,7 +1497,7 @@ def phase_feed(dev, card: str, main: dict, anchor: dict) -> dict:
 # count phase 10's run_attack runs on its corpus too. The JAX
 # package's flash kernel (K4) runs where its fused kernel's score tile no
 # longer fits VMEM, T ≥ 774; on the card K1 and K2 cover those lengths, so
-# K4's rows are theirs, counted in lv60. The WMMA routes of K1 and K2
+# K4's rows are theirs, counted in lv60. The register routes of K1 and K2
 # (float32, and bf16 with head dim 16) are counted in the CLI's tiny anchor
 # and its 1-cell sweep, which run bf16 with head dim 16 on the same clips.
 K1_TPU = "paa_tpu/ops/pallas/attention.py:107 (_fwd_kernel, via _attend_fwd :196)"
@@ -1499,17 +1520,17 @@ KERNELS = (
      K4_TPU.format("forward"), ("lv60",), "attention_long", "fwd"),
     ("flash_attention_bwd", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
      K4_TPU.format("backward"), ("lv60",), "attention_long", "bwd"),
-    ("attention_fwd_wmma", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
+    ("attention_fwd_reg", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
      ("anchor", "sweep_anchor", "sweep_two_ranks"), "attention_tiny", "fwd"),
-    ("attention_bwd_wmma", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
+    ("attention_bwd_reg", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
      ("anchor", "sweep_anchor", "sweep_two_ranks"), "attention_tiny", "bwd"),
     ("attention_fwd_pretrain", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
      K1_TPU, ("pretrain_base",), "attention_pretrain", "fwd"),
     ("attention_bwd_pretrain", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
      K2_TPU, ("pretrain_base",), "attention_pretrain", "bwd"),
-    ("attention_fwd_wmma_pretrain", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu",
+    ("attention_fwd_reg_pretrain", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu",
      K1_TPU, ("pretrain_tiny",), "attention_pretrain_tiny", "fwd"),
-    ("attention_bwd_wmma_pretrain", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu",
+    ("attention_bwd_reg_pretrain", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu",
      K2_TPU, ("pretrain_tiny",), "attention_pretrain_tiny", "bwd"),
     ("fm_norm_lv60", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU, ("lv60",),
      "fm_norm_lv60", None),
@@ -1524,13 +1545,13 @@ KERNELS = (
      K2_TPU, ("par_tp",), "attention_tp", "bwd"),
     ("fm_norm_parallel", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU, ("par_dp", "par_tp"),
      "fm_norm", None),
-    ("attention_fwd_wmma_dp", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
+    ("attention_fwd_reg_dp", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
      ("cli_dp", "cli_dp_device"), "attention_tiny_dp", "fwd"),
-    ("attention_bwd_wmma_dp", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
+    ("attention_bwd_reg_dp", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
      ("cli_dp", "cli_dp_device"), "attention_tiny_dp", "bwd"),
-    ("attention_fwd_wmma_tp", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
+    ("attention_fwd_reg_tp", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
      ("cli_tp",), "attention_tiny_tp", "fwd"),
-    ("attention_bwd_wmma_tp", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
+    ("attention_bwd_reg_tp", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
      ("cli_tp",), "attention_tiny_tp", "bwd"),
 )
 
@@ -1543,12 +1564,14 @@ def kernel_row(check_out: dict, direction: str | None) -> dict:
         return {k: check_out[k] for k in keys}
     err = (check_out["o_max_abs_err"] if direction == "fwd" else
            max(check_out[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")))
-    return {"shape": [check_out[k] for k in ("B", "T", "H", "d")], "max_abs_err": err,
-            "ms": check_out[f"{direction}_ms"],
+    return {"shape": [check_out[k] for k in ("B", "T", "H", "d")], "dtype": check_out["dtype"],
+            "max_abs_err": err, "ms": check_out[f"{direction}_ms"],
+            "device_ms": check_out[f"{direction}_device_ms"],
             "plain_ms": check_out[f"{direction}_plain_ms"],
             "bound_ms": check_out[f"{direction}_bound_ms"],
             "bound_by": check_out[f"{direction}_bound_by"],
-            "library_ms": check_out[f"{direction}_library_ms"]}
+            "library_ms": check_out[f"{direction}_library_ms"],
+            "library_device_ms": check_out[f"{direction}_library_device_ms"]}
 
 
 def main() -> int:
@@ -1592,7 +1615,7 @@ def main() -> int:
     tables = psycho.build_tables(AttackConfig(norm_type="fletcher_munson"), dev)
     emit({"phase": "profiler_probe", "device_ops": fm_profile.device_ops(
         lambda: fm_norm.fm_weighted_power_sum(spec, tables))})
-    # the WMMA route at the anchor's shape: its 32 clips, 4 heads of 16
+    # the register route at the anchor's shape: its 32 clips, 4 heads of 16
     frames = launches.pop("anchor_frames")
     at_main["attention_tiny"] = check_attention(32, frames, 4, 16, torch.bfloat16, dev)
     # phase 9's anchor runs: dp=2 holds 16 of its 32 rows, tp=2 two of its 4 heads

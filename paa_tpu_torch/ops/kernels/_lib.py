@@ -34,7 +34,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# attention_fwd/_bwd: the WMMA kernels (float32, and bf16 with head dim 16);
+# attention_fwd/_bwd: the register-route kernels (float32, and bf16 with head
+# dim 16);
 # attention_fwd_sm90/_bwd_sm90: the wgmma + TMA kernels (bf16, head dim 64)
 launches = {"attention_fwd": 0, "attention_bwd": 0, "attention_fwd_sm90": 0,
             "attention_bwd_sm90": 0, "fm_norm": 0}
@@ -43,8 +44,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     # q, k, v, o, lse, B, T, H, D, is_bf16, stream
     "paa_attention_fwd": (_P,) * 5 + (_I,) * 5 + (_P,),
-    # q, k, v, o, lse, do, dq, dk, dv, delta, B, T, H, D, is_bf16, stream
-    "paa_attention_bwd": (_P,) * 10 + (_I,) * 5 + (_P,),
+    # q, k, v, o, lse, do, dq, dk, dv, B, T, H, D, is_bf16, stream
+    "paa_attention_bwd": (_P,) * 9 + (_I,) * 5 + (_P,),
     # q, k, v, o, lse, B, T, H, stream
     "paa_attention_fwd_sm90": (_P,) * 5 + (_I,) * 3 + (_P,),
     # q, k, v, o, lse, do, dq, dk, dv, scratch, B, T, H, stream

@@ -12,8 +12,11 @@ kernel is fixed by dtype and head dim, the same function either way:
 - bfloat16 with head dim 64 (base, lv60): the Hopper kernels, wgmma with
   register accumulators fed by TMA through an mbarrier ring
   (``csrc/attention_fwd_sm90.cu``, ``csrc/attention_bwd_sm90.cu``);
-- float32, and head dim 16 (the tiny preset): the WMMA kernels
-  (``csrc/attention_fwd.cu``, ``csrc/attention_bwd.cu``).
+- float32, and head dim 16 (the tiny preset): the register-route kernels
+  (``csrc/attention_fwd.cu``, ``csrc/attention_bwd.cu``), each row's operands
+  and accumulators in registers: exact float32 on the FMA units, and bf16
+  with head dim 16 on the tensor cores through ``mma.sync``; the backward is
+  one launch, key-owning blocks writing dk and dv and query-owning blocks dq.
 """
 
 from __future__ import annotations
@@ -124,18 +127,17 @@ def attention_bwd(q, k, v, o, lse, do, H: int):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     sm90 = _sm90(q, d)
     lib = _lib.library()
-    # scratch: D = rowsum(do∘o), and for the Hopper route also lse·log2 e,
-    # over rows padded as that kernel asks
-    rows = lib.paa_attention_bwd_sm90_rows(T) if sm90 else T
-    scratch = torch.empty(((2 if sm90 else 1), B, H, rows), dtype=torch.float32,
-                          device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr())
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
         if sm90:
-            status = lib.paa_attention_bwd_sm90(*ptrs, B, T, H, stream)
-        else:
+            # scratch of the Hopper route: D = rowsum(do∘o) and lse·log2 e,
+            # over rows padded as that kernel asks
+            scratch = torch.empty((2, B, H, lib.paa_attention_bwd_sm90_rows(T)),
+                                  dtype=torch.float32, device=q.device)
+            status = lib.paa_attention_bwd_sm90(*ptrs, scratch.data_ptr(), B, T, H, stream)
+        else:  # the register route computes D itself and needs no scratch
             status = lib.paa_attention_bwd(*ptrs, B, T, H, d, int(q.dtype == torch.bfloat16),
                                            stream)
     _lib.check(status, "attention_bwd")

@@ -1,7 +1,7 @@
 """The CUDA kernels K1, K2 and K3 against their plain PyTorch versions on a
-GPU (K1/K2 on both routes, wgmma for bf16 with head dim 64 and WMMA
-otherwise, also at the long-clip lengths where the JAX package runs its
-flash kernel, K4), K2's determinism, and the step's launch counts. Every
+GPU (K1/K2 on both routes, wgmma for bf16 with head dim 64 and the register
+route otherwise, also at the long-clip lengths where the JAX package runs
+its flash kernel, K4), K2's determinism, and the step's launch counts. Every
 test needs a CUDA device and skips without one (the kernels have no CPU
 mode).
 
@@ -37,7 +37,8 @@ def _rel(a, b):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T, heads, d", [(1, 12, 64), (130, 12, 64), (499, 12, 64),
-                                         (640, 12, 64), (130, 4, 16), (499, 16, 64),
+                                         (640, 12, 64), (1, 4, 16), (130, 4, 16),
+                                         (152, 4, 16), (499, 4, 16), (499, 16, 64),
                                          # the JAX package's flash-kernel lengths (K4):
                                          # 15.5 s, 20 s and 30 s, ragged last tiles
                                          (774, 16, 64), (999, 16, 64), (1499, 16, 64)])
@@ -77,6 +78,35 @@ def test_attention_wgmma_route_at_the_main_shapes(cuda, B, T, heads):
     want = attention.attention_bwd_plain(q, k, v, o, lse, do, heads)
     for a, b, c in zip(got, want, again):
         assert _rel(a, b) <= TOL[torch.bfloat16]
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("B, T, heads, d, dtype", [
+    (32, 152, 4, 16, torch.float32),   # the tiny recipe's pretraining batch
+    (32, 152, 4, 16, torch.bfloat16),  # the tiny anchor
+    (16, 152, 4, 16, torch.bfloat16),  # its dp=2 rank
+    (32, 152, 2, 16, torch.bfloat16),  # its tp=2 rank
+    (64, 499, 12, 64, torch.float32),  # base under --compute_dtype float32
+])
+def test_attention_register_route_at_the_main_shapes(cuda, B, T, heads, d, dtype):
+    """The register route (float32, and bf16 with head dim 16) at the shapes
+    the main paths give it: one launch a wrapper call, the plain versions'
+    results, and K2's bits equal over two calls."""
+    g = torch.Generator(device=cuda).manual_seed(T + heads)
+    q, k, v, do = ((torch.randn((B, T, heads * d), generator=g, device=cuda) * 0.5).to(dtype)
+                   for _ in range(4))
+    _lib.reset_launches()
+    o, lse = attention.attention_fwd(q, k, v, heads)
+    got = attention.attention_bwd(q, k, v, o, lse, do, heads)
+    again = attention.attention_bwd(q, k, v, o, lse, do, heads)
+    assert _lib.launches["attention_fwd"] == 1 and _lib.launches["attention_bwd"] == 2
+    assert _lib.launches["attention_fwd_sm90"] == _lib.launches["attention_bwd_sm90"] == 0
+    o_ref, lse_ref = attention.attention_fwd_plain(q, k, v, heads)
+    assert _rel(o, o_ref) <= TOL[dtype]
+    assert float((lse - lse_ref).abs().max()) <= (1e-4 if dtype == torch.float32 else 1e-3)
+    want = attention.attention_bwd_plain(q, k, v, o, lse, do, heads)
+    for a, b, c in zip(got, want, again):
+        assert _rel(a, b) <= TOL[dtype]
         assert torch.equal(a, c)
 
 

@@ -27,8 +27,9 @@ At base's p (1, 513, 626) and lv60's (1, 513, 1251), both in
     one-element PyTorch add (the floor of one kernel in a graph).
 
 Every line carries the card's name and power limit. Needs one CUDA device.
-``chip_smoke.py`` takes its K3 timers (``graph_ms``, ``device_ops``) and
-its count of K3's device operations (``graph_nodes``) from here.
+``chip_smoke.py`` takes its device timer (``graph_ms``, for K3 and the
+attention checks), K3's profiler names (``device_ops``) and its count of
+K3's device operations (``graph_nodes``) from here.
 """
 
 from __future__ import annotations
@@ -71,16 +72,18 @@ def card() -> str:
                           capture_output=True, text=True, check=True).stdout.strip()
 
 
-def graph_ms(fn, calls=100, replays=5) -> float:
-    """Device ms of one ``fn`` call: a CUDA graph of ``calls`` calls, replayed."""
+def graph_ms(fn, calls=100, replays=5, stream=None) -> float:
+    """Device ms of one ``fn`` call: a CUDA graph of ``calls`` calls, replayed.
+    With ``stream`` it warms up and captures there: an autograd backward
+    must be captured on the stream its forward ran on."""
     fn()
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(calls):
             fn()
     graph.replay()
