@@ -108,6 +108,20 @@ line:
                clean test scores equal to phase 6's, p bit-equal on the
                ranks. Phases 6, 7 and 9 run on the device feed too, the
                default on CUDA.
+ 11. remat   — (a) phase 5's configuration under each remat setting of the
+               model: the policies no_probs, save_cheap, save_resid and full,
+               save_cheap with remat_ffn, and full with feature-extractor
+               remat saving 0 and 2 layers, on phase 5's weights: step time,
+               peak and launches (K1 twice a layer and microbatch under
+               full, once otherwise), the first step's loss from p = 0
+               bit-equal to phase 5's, ∂loss/∂p at p = 0 within PAR_TOL of
+               phase 5's, and the peaks in the order full < save_resid <
+               save_cheap < phase 5; (b) the same batch in one microbatch
+               under full remat with feature-extractor remat; (c) phase 6's
+               lv60 ``run_attack`` with ``--remat``: clean scores equal to
+               the run without it (eval has no backward), finite results,
+               launches as its steps ask. It runs after phase 6, whose lv60
+               run it needs.
 
 Then K1/K2's register route (head dim 16) at the anchor's shape, the kernels
 line ``{"kernels": [...]}`` (per kernel and the runs it counts: launches in
@@ -120,6 +134,7 @@ instead. The CLI and sweep runs write under ``chiprun_out/chip_smoke/``.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import hashlib
 import importlib.util
@@ -385,6 +400,9 @@ def phase_kernels(dev) -> dict:
                # one lv60 microbatch: B/A rows × 20 s
                "attention_long": check_attention(LV60_B // LV60_ACCUM, 999, 16, 64,
                                                  torch.bfloat16, dev),
+               # lv60's whole batch in one microbatch (phase 11 (b))
+               "attention_long_a1": check_attention(LV60_B, 999, 16, 64, torch.bfloat16, dev,
+                                                    iters=5),
                # base under --compute_dtype float32: the register route at
                # full width
                "attention_base_f32": check_attention(MAIN_B, 499, 12, 64, torch.float32, dev,
@@ -518,15 +536,20 @@ def full_width_batch(B: int, T: int, dev) -> list:
 
 
 def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
-                     timed_steps: int, card: str) -> dict:
-    """One attack configuration at full width: random weights from SEED,
-    bf16 compute and storage, fletcher_munson PGD with ``accum``
-    microbatches. Returns the launch counts of its run, its step time and
-    its peak memory."""
-    mcfg = wav2vec2.get_config(preset)
-    L = mcfg.num_hidden_layers
+                     timed_steps: int, card: str, model=None, grad: bool = False) -> dict:
+    """One attack configuration at full width: random weights from SEED (or
+    ``model``'s), bf16 compute and storage, fletcher_munson PGD with
+    ``accum`` microbatches. Returns the launch counts of its run, its step
+    time, its peak memory, the first step's loss (from p = 0) and the model;
+    with ``grad`` also ∂loss/∂p at p = 0, taken after the run's counts."""
     t0 = time.perf_counter()
-    model = wav2vec2.init_model(mcfg, seed=SEED).cast_param_storage(torch.bfloat16).to(dev)
+    if model is None:
+        model = wav2vec2.init_model(wav2vec2.get_config(preset), seed=SEED)
+        model = model.cast_param_storage(torch.bfloat16).to(dev)
+    mcfg = model.cfg
+    L = mcfg.num_hidden_layers
+    # full remat runs every layer's forward again in its backward, K1 included
+    k1 = 2 if mcfg.remat and mcfg.remat_policy == "full" else 1
     cfg = AttackConfig(norm_type="fletcher_munson", optimizer_type="pgd", lr=1e-4,
                        accum_steps=accum, model_name=preset)
     tables = psycho.build_tables(cfg, dev)
@@ -542,7 +565,7 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
     # per train step: every layer forward and backward in each microbatch,
     # one projection; the eval step is one forward pass over the batch
     # (bf16, head dim 64: the wgmma route of K1/K2)
-    per_step = counts(attention_fwd_sm90=L * accum, attention_bwd_sm90=L * accum, fm_norm=1)
+    per_step = counts(attention_fwd_sm90=k1 * L * accum, attention_bwd_sm90=L * accum, fm_norm=1)
     times = lambda n: {k: v * n for k, v in per_step.items()}
     torch.cuda.reset_peak_memory_stats(dev)
     _lib.reset_launches()
@@ -570,9 +593,11 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
     peak = torch.cuda.max_memory_allocated(dev)
     p_abs = float(p.abs().max())
     finite = all(np.isfinite(losses + [eval_loss])) and bool(torch.isfinite(p).all())
+    remat = {k: getattr(mcfg, k) for k in ("remat", "remat_policy", "remat_feature_extractor",
+                                           "remat_fe_save_layers", "remat_ffn")}
     emit({"phase": phase, "model": preset, "layers": L, "hidden": mcfg.hidden_size,
           "heads": mcfg.num_attention_heads, "batch": B, "samples": T,
-          "frames": mcfg.feat_extract_output_length(T), "accum_steps": accum,
+          "frames": mcfg.feat_extract_output_length(T), "accum_steps": accum, **remat,
           "compute_dtype": mcfg.compute_dtype, "param_storage": "bfloat16",
           "norm": cfg.norm_type, "optimizer": cfg.optimizer_type, "setup_s": setup_s,
           "step_s": step_s, "steps_per_s": 1.0 / step_s, "timed_steps": timed_steps,
@@ -581,7 +606,12 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
           "launches": launches, "launches_per_train_step": per_step})
     check(finite, f"{phase}: non-finite loss or perturbation")
     check(p_abs > 0.0, f"{phase}: the perturbation did not change")
-    return {"launches": launches, "step_s": step_s, "peak": peak}
+    out = {"launches": launches, "step_s": step_s, "peak": peak, "first_loss": losses[0],
+           "model": model}
+    if grad:
+        p0 = torch.zeros((1, T), device=dev)
+        out["grad"] = step._grad_and_metrics(model, cfg, p0, audio, labels, pads, weights)[2]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -713,6 +743,7 @@ def phase_cli(card: str) -> dict:
     check(all(math.isfinite(v) for v in values), f"cli lv60: non-finite scores {values}")
     check(launches == want, f"cli lv60: launched {launches}, want {want}")
     out["cli_lv60"] = launches
+    out["cli_lv60_run"] = {k: res[k] for k in ("eval_score_clean", "final_test_clean")}
 
     # (c) --profile: the anchor on its --small_data corpus, without the
     # trace and with it; the trace must not change the run's numbers
@@ -1490,6 +1521,99 @@ def phase_feed(dev, card: str, main: dict, anchor: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: remat at lv60
+# ---------------------------------------------------------------------------
+
+# (a): (run name, model-config overrides), each against phase 5 (remat off)
+REMAT_RUNS = (
+    ("remat_no_probs", dict(remat=True, remat_policy="no_probs")),
+    ("remat_save_cheap", dict(remat=True, remat_policy="save_cheap")),
+    ("remat_save_resid", dict(remat=True, remat_policy="save_resid")),
+    ("remat_full", dict(remat=True, remat_policy="full")),
+    ("remat_save_cheap_ffn", dict(remat=True, remat_policy="save_cheap", remat_ffn=True)),
+    ("remat_full_fe0", dict(remat=True, remat_policy="full", remat_feature_extractor=True,
+                            remat_fe_save_layers=0)),
+    ("remat_full_fe2", dict(remat=True, remat_policy="full", remat_feature_extractor=True,
+                            remat_fe_save_layers=2)),
+)
+# their peaks, each below the next; "lv60" is phase 5's
+REMAT_PEAK_ORDER = ("remat_full", "remat_save_resid", "remat_save_cheap", "lv60")
+# (b): the batch in one microbatch, what remat is for
+REMAT_A1 = dict(remat=True, remat_policy="full", remat_feature_extractor=True,
+                remat_fe_save_layers=0)
+REMAT_CLI_ARGV = LV60_CLI_ARGV + ["--remat"]  # (c): save_cheap, the policy --remat resolves
+
+
+def remat_model(base, **over) -> wav2vec2.Wav2Vec2ForCTC:
+    """``base``'s weights, the same tensors, under its config with ``over``."""
+    with torch.device("meta"):
+        model = wav2vec2.Wav2Vec2ForCTC(dataclasses.replace(base.cfg, **over))
+    model.load_state_dict(base.state_dict(), assign=True)
+    return model.requires_grad_(False).eval()
+
+
+def phase_remat(dev, card: str, lv60: dict, cli_lv60: dict) -> dict:
+    """Returns the launch counts of its runs."""
+    t_phase = time.perf_counter()
+    out, peaks = {}, {"lv60": lv60["peak"]}
+    g0 = lv60["grad"]
+    # (a) phase 5's configuration under each remat setting
+    for name, over in REMAT_RUNS:
+        run = phase_full_width(dev, name, "wav2vec2-large-lv60", LV60_B, LV60_T, LV60_ACCUM, 2,
+                               card, model=remat_model(lv60["model"], **over), grad=True)
+        g = run.pop("grad")
+        result = {"first_loss": run["first_loss"], "off_first_loss": lv60["first_loss"],
+                  "first_loss_bit_equal": run["first_loss"] == lv60["first_loss"],
+                  "grad_max_rel_err": float((g - g0).abs().max() / g0.abs().max()),
+                  "pgd_sign_agreement": float((torch.sign(g) == torch.sign(g0)).float().mean()),
+                  "step_s": run["step_s"], "off_step_s": lv60["step_s"],
+                  "peak_mem_gib": run["peak"] / 2**30, "off_peak_mem_gib": lv60["peak"] / 2**30}
+        emit({"phase": "remat", "run": name, **over, **result, "tolerance": PAR_TOL,
+              "card": card})
+        check(result["first_loss_bit_equal"], f"remat {name}: first loss {result}")
+        check(result["grad_max_rel_err"] <= PAR_TOL["grad_rel"], f"remat {name}: grad {result}")
+        check(result["pgd_sign_agreement"] >= PAR_TOL["sign_agreement_min"],
+              f"remat {name}: signs {result}")
+        out[name], peaks[name] = run["launches"], run["peak"]
+        del run, g
+        torch.cuda.empty_cache()
+    order = [peaks[n] for n in REMAT_PEAK_ORDER]
+    emit({"phase": "remat", "peak_order": list(REMAT_PEAK_ORDER),
+          "peaks_gib": [x / 2**30 for x in order], "card": card})
+    check(all(a < b for a, b in zip(order, order[1:])),
+          f"remat: peaks {dict(zip(REMAT_PEAK_ORDER, order))} not in that order")
+
+    # (b) B=64 × 20 s in one microbatch
+    run = phase_full_width(dev, "remat_a1", "wav2vec2-large-lv60", LV60_B, LV60_T, 1, 2, card,
+                           model=remat_model(lv60["model"], **REMAT_A1))
+    emit({"phase": "remat", "run": "remat_a1", **REMAT_A1, "accum_steps": 1,
+          "step_s": run["step_s"], "peak_mem_gib": run["peak"] / 2**30,
+          "phase5_step_s": lv60["step_s"], "phase5_peak_mem_gib": lv60["peak"] / 2**30,
+          "card": card})
+    out["remat_a1"] = run["launches"]
+    del run
+    torch.cuda.empty_cache()
+
+    # (c) phase 6's lv60 run_attack with --remat: eval has no backward, so
+    # its clean scores are the run's without it
+    res, facts, launches = run_cli("lv60_remat", REMAT_CLI_ARGV)
+    want = expected_cli_launches(REMAT_CLI_ARGV, facts, fm=True, route="_sm90")
+    values = [res[k][m] for k in ("eval_score_clean", "eval_score_perturbed",
+                                  "final_test_perturbed") for m in ("ctc", "wer")]
+    emit({"phase": "remat", "run": "cli_lv60_remat", **facts,
+          **{k: res[k] for k in cli_lv60}, "without_remat": cli_lv60,
+          "launches": launches, "want_launches": want, "wall_s": time.perf_counter() - t_phase,
+          "card": card})
+    check(res.get("finished_training") is True, "remat cli: the run did not finish")
+    check(all(math.isfinite(v) for v in values), f"remat cli: non-finite scores {values}")
+    for key, value in cli_lv60.items():
+        check(res[key] == value, f"remat cli: {key} {res[key]} against {value} without remat")
+    check(launches == want, f"remat cli: launched {launches}, want {want}")
+    out["cli_lv60_remat"] = launches
+    return out
+
+
 # (row name, launch counter, source, TPU kernel it replaces, runs whose
 # launches it reports, check at those runs' shapes and direction it takes
 # its numbers from). The base sweep's clips are longer than phase 4's, so
@@ -1504,6 +1628,7 @@ K1_TPU = "paa_tpu/ops/pallas/attention.py:107 (_fwd_kernel, via _attend_fwd :196
 K2_TPU = "paa_tpu/ops/pallas/attention.py:133 (_bwd_kernel, via _attend_bwd :218)"
 K4_TPU = "paa_tpu/models/wav2vec2.py:766 (_flash_attention, stock Pallas flash_attention, {})"
 K3_TPU = "paa_tpu/ops/pallas/fm_norm.py:40 (_kernel, via fm_weighted_power_sum :61)"
+REMAT_NAMES = tuple(name for name, _ in REMAT_RUNS)  # phase 11 (a), at phase 5's shapes
 KERNELS = (
     ("attention_fwd", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu", K1_TPU,
      ("main",), "attention", "fwd"),
@@ -1517,9 +1642,14 @@ KERNELS = (
     ("fm_norm_sweep", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU,
      ("sweep", "feed_host", "feed_device"), "fm_norm_sweep", None),
     ("flash_attention_fwd", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
-     K4_TPU.format("forward"), ("lv60",), "attention_long", "fwd"),
+     K4_TPU.format("forward"), ("lv60",) + REMAT_NAMES, "attention_long", "fwd"),
     ("flash_attention_bwd", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
-     K4_TPU.format("backward"), ("lv60",), "attention_long", "bwd"),
+     K4_TPU.format("backward"), ("lv60",) + REMAT_NAMES, "attention_long", "bwd"),
+    # phase 11 (b): lv60's whole batch of 64 in one microbatch
+    ("flash_attention_fwd_a1", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
+     K4_TPU.format("forward"), ("remat_a1",), "attention_long_a1", "fwd"),
+    ("flash_attention_bwd_a1", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
+     K4_TPU.format("backward"), ("remat_a1",), "attention_long_a1", "bwd"),
     ("attention_fwd_reg", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
      ("anchor", "sweep_anchor", "sweep_two_ranks"), "attention_tiny", "fwd"),
     ("attention_bwd_reg", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
@@ -1532,8 +1662,8 @@ KERNELS = (
      K1_TPU, ("pretrain_tiny",), "attention_pretrain_tiny", "fwd"),
     ("attention_bwd_reg_pretrain", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu",
      K2_TPU, ("pretrain_tiny",), "attention_pretrain_tiny", "bwd"),
-    ("fm_norm_lv60", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU, ("lv60",),
-     "fm_norm_lv60", None),
+    ("fm_norm_lv60", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU,
+     ("lv60",) + REMAT_NAMES + ("remat_a1",), "fm_norm_lv60", None),
     # phase 9: each rank's shapes; the 2-rank sweep runs the anchor's shape
     ("attention_fwd_dp", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
      K1_TPU, ("par_dp",), "attention_dp", "fwd"),
@@ -1593,12 +1723,17 @@ def main() -> int:
     at_main = phase_kernels(dev)
     phase_tiny(dev)
     main_run = phase_full_width(dev, "main", "wav2vec2-base", MAIN_B, MAIN_T, 1, 3, smi)
+    del main_run["model"]  # later phases' peaks are held against this one's
     launches = {"main": main_run["launches"]}
     torch.cuda.empty_cache()
-    launches["lv60"] = phase_full_width(dev, "lv60", "wav2vec2-large-lv60", LV60_B, LV60_T,
-                                        LV60_ACCUM, 2, smi)["launches"]
+    lv60_run = phase_full_width(dev, "lv60", "wav2vec2-large-lv60", LV60_B, LV60_T,
+                                LV60_ACCUM, 2, smi, grad=True)
+    launches["lv60"] = lv60_run["launches"]
     torch.cuda.empty_cache()
     launches.update(phase_cli(smi))
+    torch.cuda.empty_cache()
+    launches.update(phase_remat(dev, smi, lv60_run, launches.pop("cli_lv60_run")))
+    del lv60_run
     torch.cuda.empty_cache()
     anchor = launches.pop("anchor_run")
     launches.update(phase_sweep(smi, main_run, anchor))

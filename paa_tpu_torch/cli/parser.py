@@ -22,9 +22,13 @@ into a usage error):
   * ``--device_cache`` / ``--no_device_cache``: the device feed or the host
     feed (``data/pipeline.py``); without either, auto: the device feed on
     CUDA, the host feed on the CPU;
-  * ``--no_remat`` states what the port does; ``--remat``,
-    ``--remat_policy``, a ``--conv_impl`` other than ``conv`` and
-    ``--device_probe_timeout`` are refused.
+  * ``--remat`` / ``--no_remat`` / ``--remat_policy``: encoder remat under
+    the reference's four policies (``models/wav2vec2.py``); off unless
+    ``--remat`` asks for it (the reference turns it on by default only on a
+    TPU), the policy ``save_cheap`` when it is on and none is given
+    (:func:`resolve_remat`);
+  * a ``--conv_impl`` other than ``conv`` and ``--device_probe_timeout`` are
+    refused.
 
 It also turns parsed flags into what a run is built from: the attack
 config, the constraint params and the data pipeline.
@@ -139,11 +143,15 @@ def create_arg_parser() -> argparse.ArgumentParser:
                         help="auto, fused and flash run the attention kernels on the card; "
                              "xla (dense) runs on the CPU only")
     parser.add_argument("--remat", action="store_true", default=None,
-                        help="refused: remat is not ported")
-    parser.add_argument("--no_remat", action="store_true", help="no remat (the port's only mode)")
+                        help="rematerialize the encoder layers in the backward (less device "
+                             "memory, more work). Default: off (the reference turns it on by "
+                             "default only on a TPU)")
+    parser.add_argument("--no_remat", action="store_true",
+                        help="disable encoder rematerialization")
     parser.add_argument("--remat_policy", type=str, default=None,
                         choices=["full", "save_cheap", "no_probs", "save_resid"],
-                        help="refused: remat is not ported")
+                        help="which activations the encoder remat keeps across the boundary "
+                             "(default: save_cheap when remat is on)")
     parser.add_argument("--accum_steps", type=int, default=1,
                         help="split each batch into this many microbatches, summing the "
                              "perturbation gradients (caps device memory at a microbatch)")
@@ -193,8 +201,6 @@ def refusals(args) -> list[str]:
                    "attention kernels run (auto, fused or flash)")
     if args.no_pallas_fm:
         out.append("--no_pallas_fm: the Fletcher-Munson kernel always runs on the card")
-    if args.remat or args.remat_policy is not None:
-        out.append("--remat/--remat_policy: remat is not ported (ROADMAP.md, queue 1: remat)")
     if args.conv_impl != "conv":
         out.append(f"--conv_impl {args.conv_impl}: the port has the 'conv' lowering only "
                    "(the others were measured and rejected on the TPU)")
@@ -211,6 +217,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     if refused:
         parser.error("; ".join(refused))
     return args
+
+
+def resolve_remat(args) -> tuple[bool, str]:
+    """``(remat, remat_policy)`` as the reference's ``resolve_perf_defaults``
+    resolves them off a TPU: remat only when ``--remat`` asks (``--no_remat``
+    wins), the policy as given, else ``save_cheap`` with remat on and
+    ``full`` (the config's default) with it off."""
+    remat = bool(args.remat) and not args.no_remat
+    return remat, args.remat_policy or ("save_cheap" if remat else "full")
 
 
 def config_from_args(args) -> AttackConfig:
@@ -237,7 +252,7 @@ def config_from_args(args) -> AttackConfig:
         seed=args.seed,
         model_name=args.model,
         compute_dtype=args.compute_dtype,
-        remat=False,
+        remat=resolve_remat(args)[0],
         accum_steps=args.accum_steps,
         use_pallas_fm=bool(args.use_pallas_fm),
         tp=args.tp,

@@ -32,10 +32,11 @@ OPTIMIZER_TYPES = ("pgd", "adam")
 class AttackConfig:
     """Static attack facts (reference: ``paa_tpu/config.py:41-140``).
 
-    ``remat`` and ``use_pallas_fm`` steer TPU-only machinery and are kept so
-    that one configuration describes a run in both packages: the port has no
-    remat, and it picks the Fletcher-Munson kernel by the tensor's device, not
-    by ``use_pallas_fm``. ``tp`` sizes the model axis under ``torchrun``, and
+    ``remat`` records whether the encoder layers are rematerialized (the
+    model config carries it with its policy, ``cli/parser.py:resolve_remat``).
+    ``use_pallas_fm`` is kept so that one configuration describes a run in
+    both packages: the port picks the Fletcher-Munson kernel by the tensor's
+    device, not by it. ``tp`` sizes the model axis under ``torchrun``, and
     ``cache_data_on_device`` picks the feed (True, False or None for auto;
     ``data/pipeline.py:device_feed_kind``), as in the JAX package.
     """

@@ -15,6 +15,14 @@ Numerics follow the reference's placement:
     return the compute dtype; the feature extractor's per-layer LayerNorm
     keeps only its compute-dtype input for the backward, never a float32
     copy of the layer;
+  * the encoder's and the feature projection's LayerNorms (``_LayerNormFn``)
+    take the reference's fast variance, ``max(E[x²] − E[x]², 0)``, and keep
+    only x̂ in the input's dtype and 1/std for the backward; the FFN's GELU
+    (``_GeluFn``) keeps only its input, and with ``remat_ffn`` the whole FFN
+    (``_FFNFn``) keeps its input and weights and recomputes the hidden;
+  * ``remat`` checkpoints the encoder layers under one of four policies, and
+    ``remat_feature_extractor`` the conv stack (``torch.utils.checkpoint``,
+    only while grad is on);
   * the feature extractor's GELU is the tanh approximation under bf16 and
     exact erf under f32 (``fe_gelu="auto"``; "exact" and "tanh" force one);
   * the positional conv is weight-normed per tap (dim=2), grouped, with
@@ -36,6 +44,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from paa_tpu_torch.ops.kernels.attention import attention
 from paa_tpu_torch.parallel import tp
@@ -63,10 +72,33 @@ class Wav2Vec2Config:
     # differentiable forward (HF's processor does it for lv60)
     do_normalize: bool = False
     compute_dtype: str = "bfloat16"
+    # Encoder remat, only while grad is on. The policies keep what the
+    # reference's keep when attention runs through K1/K2, where scores and
+    # probabilities never exist: "full" keeps each layer's input and
+    # recomputes the whole layer, K1 included; "save_cheap" keeps everything
+    # but the FFN's (B, T, intermediate) hidden, recomputed with one matmul;
+    # "no_probs" drops only scores and probabilities, so it keeps what no
+    # remat keeps; "save_resid" keeps the layer input, the attention's q, k,
+    # v, o and lse and its output, and recomputes both LayerNorms and the FFN.
+    remat: bool = False
+    remat_policy: str = "full"  # "full" | "save_cheap" | "no_probs" | "save_resid"
+    # Feature-extractor remat: one checkpoint over the conv stack keeps only
+    # the waveform; with remat_fe_save_layers = k > 0 each of the first k
+    # conv layers is a checkpoint of its own (keeping its input) and the
+    # rest one more. Off by default here, on in the reference: the reference
+    # turns it on to fit B=64 × 10 s on a 16 GB chip, and the H100's 80 GB
+    # hold lv60's 20 s batch in two microbatches without it (30.9 GiB), so
+    # nothing asks for the recompute until a measurement of its cost does.
+    remat_feature_extractor: bool = False
+    remat_fe_save_layers: int = 0
+    # The FFN through _FFNFn: it keeps its input and weights and recomputes
+    # the hidden in the backward, under any remat policy or none.
+    remat_ffn: bool = False
     fe_gelu: str = "auto"  # "auto" | "exact" | "tanh"
 
     def __post_init__(self):
         for name, allowed in (("feat_extract_norm", ("group", "layer")),
+                              ("remat_policy", ("full", "save_cheap", "no_probs", "save_resid")),
                               ("fe_gelu", ("auto", "exact", "tanh"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name}={getattr(self, name)!r}; expected one of {allowed}")
@@ -119,9 +151,100 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+def _checkpoint(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward from
+    ``args``. ``preserve_rng_state=False``: nothing in the model draws random
+    numbers, so saving and restoring the CUDA RNG state around every region
+    (the default) is work, and a host-side read of the generator, that the
+    recompute does not need."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+class _LayerNormFn(torch.autograd.Function):
+    """LayerNorm over the last axis in float32, output in the input's dtype
+    (reference: ``_layernorm``, ``_LayerNorm``). The variance is the
+    reference's fast one, ``max(E[x²] − E[x]², 0)``, which loses digits
+    where |mean| ≫ std as Welford's would not: the port follows the
+    reference's formula. The backward keeps exactly x̂ in the input's dtype
+    and 1/std, never a float32 tensor of the input's size."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float):
+        # float32 values from bf16 reads where an op takes them: the mean
+        # accumulates in float32, x − mean promotes to it, and the affine is
+        # written in the input's dtype from its float32 value
+        mean = x.mean(-1, keepdim=True, dtype=torch.float32)
+        msq = x.to(torch.float32, copy=True).square_().mean(-1, keepdim=True)
+        rstd = torch.rsqrt((msq - mean * mean).clamp_min_(0.0) + eps)
+        xhat = torch.sub(x, mean).mul_(rstd)
+        out = torch.addcmul(bias, xhat, weight, out=torch.empty_like(x))
+        ctx.save_for_backward(xhat.to(x.dtype), rstd, weight)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # dx = rstd·(dx̂ − mean(dx̂) − x̂·mean(dx̂·x̂)), dx̂ = g·γ. aten's fused
+        # LayerNorm backward with x̂ as its input, mean 0 and 1/std 1 is the
+        # bracket in one pass, and dγ = Σ g·x̂, dβ = Σ g as they stand; the
+        # true 1/std scales dx as it is written in the input's dtype. The
+        # same formula in plain elementwise passes took twice the time at
+        # lv60's and base's shapes (tools/layernorm_ab.py, PERF.md §6).
+        xhat, rstd, weight = ctx.saved_tensors
+        need = [bool(n) for n in ctx.needs_input_grad[:3]]
+        # its bias argument only shapes dβ, which has γ's shape
+        dxhat, dw, db = torch.ops.aten.native_layer_norm_backward(
+            g.float(), xhat.float(), [xhat.shape[-1]], torch.zeros_like(rstd),
+            torch.ones_like(rstd), weight, weight, need)
+        dx = torch.mul(dxhat, rstd, out=torch.empty_like(xhat)) if need[0] else None
+        return dx, dw, db, None
+
+
 def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-    """float32 statistics, output in the input's dtype."""
-    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps).to(x.dtype)
+    """float32 statistics, output in the input's dtype, lean backward."""
+    return _LayerNormFn.apply(x, norm.weight, norm.bias, norm.eps)
+
+
+class _GeluFn(torch.autograd.Function):
+    """The FFN's erf GELU, whose only residual is its input, the hidden that
+    ``save_cheap`` recomputes (reference: ``_gelu``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.gelu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.ops.aten.gelu_backward(g, x)
+
+
+class _FFNFn(torch.autograd.Function):
+    """``gelu(y·ikᵀ + ib)·okᵀ (+ ob)`` in the compute dtype whose residuals
+    are ``(y, ik, ib, ok)``: the backward recomputes the (…, intermediate)
+    hidden with one matmul (reference: ``_ffn``). Weights in ``nn.Linear``'s
+    (out, in) layout; ``ob`` may be None, as under tensor parallelism, where
+    the caller adds the bias once after the reduce."""
+
+    @staticmethod
+    def forward(ctx, y, ik, ib, ok, ob):
+        ctx.save_for_backward(y, ik, ib, ok)
+        ctx.has_ob = ob is not None
+        return F.linear(F.gelu(F.linear(y, ik, ib)), ok, ob)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, ik, ib, ok = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        h = F.linear(y, ik, ib)
+        dh = torch.ops.aten.gelu_backward(g.matmul(ok), h)
+        rows = lambda t: t.reshape(-1, t.shape[-1])
+        dy = dh.matmul(ik) if need[0] else None
+        dik = rows(dh).t().mm(rows(y)) if need[1] else None
+        dib = rows(dh).sum(0) if need[2] else None
+        dok = rows(g).t().mm(rows(F.gelu(h))) if need[3] else None
+        dob = rows(g).sum(0) if ctx.has_ob and need[4] else None
+        return dy, dik, dib, dok, dob
 
 
 class _ChannelLayerNorm(torch.autograd.Function):
@@ -193,11 +316,23 @@ class FeatureExtractor(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.conv_layers = nn.ModuleList(ConvLayer(cfg, i) for i in range(len(cfg.conv_dim)))
+        self.remat = cfg.remat_feature_extractor
+        self.save_layers = cfg.remat_fe_save_layers
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.conv_layers:
+    def _layers(self, x: torch.Tensor, start: int) -> torch.Tensor:
+        for layer in self.conv_layers[start:]:
             x = layer(x)
         return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._layers(x, 0)
+        # the first k layers one checkpoint each, keeping their inputs (the
+        # reference's "fe_out"); the rest one checkpoint
+        k = min(self.save_layers, len(self.conv_layers))
+        for layer in self.conv_layers[:k]:
+            x = _checkpoint(layer, x)
+        return _checkpoint(self._layers, x, k) if k < len(self.conv_layers) else x
 
 
 class FeatureProjection(nn.Module):
@@ -266,7 +401,9 @@ class SelfAttention(nn.Module):
 
 class FeedForward(nn.Module):
     """The FFN; under tensor parallelism this rank's ``intermediate_size /
-    tp`` columns."""
+    tp`` columns. With ``remat_ffn`` it runs as ``_FFNFn``; under the
+    ``save_cheap`` policy the hidden and its GELU are one checkpoint, which
+    keeps the FFN's input in place of the hidden."""
 
     def __init__(self, cfg: Wav2Vec2Config, axis: tp.ModelAxis | None = None):
         super().__init__()
@@ -274,17 +411,37 @@ class FeedForward(nn.Module):
         self.axis = axis
         self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size // n)
         self.output_dense = nn.Linear(cfg.intermediate_size // n, cfg.hidden_size)
+        self.lean = cfg.remat_ffn
+        self.recompute_hidden = cfg.remat and cfg.remat_policy == "save_cheap"
+
+    def _hidden(self, y: torch.Tensor) -> torch.Tensor:
+        return _GeluFn.apply(_linear(y, self.intermediate_dense, y.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
+        if self.axis is not None:
+            x = tp.copy_to_model(x, self.axis)
+        if self.lean:
+            inner, outer = self.intermediate_dense, self.output_dense
+            ob = outer.bias.to(dt)
+            if self.axis is None:
+                return _FFNFn.apply(x, inner.weight.to(dt), inner.bias.to(dt),
+                                    outer.weight.to(dt), ob)
+            partial = _FFNFn.apply(x, inner.weight.to(dt), inner.bias.to(dt),
+                                   outer.weight.to(dt), None)
+            return tp.reduce_from_model(partial, self.axis) + ob
+        if self.recompute_hidden and torch.is_grad_enabled():
+            h = _checkpoint(self._hidden, x)
+        else:
+            h = self._hidden(x)
         if self.axis is None:
-            return _linear(F.gelu(_linear(x, self.intermediate_dense, dt)), self.output_dense, dt)
-        h = F.gelu(_linear(tp.copy_to_model(x, self.axis), self.intermediate_dense, dt))
+            return _linear(h, self.output_dense, dt)
         return tp.row_parallel(h, self.output_dense, self.axis, dt)
 
 
 class EncoderLayer(nn.Module):
-    """One transformer layer: post-LN (base) or pre-LN (lv60)."""
+    """One transformer layer: post-LN (base) or pre-LN (lv60), checkpointed
+    as ``cfg.remat_policy`` says while grad is on (``Wav2Vec2Config``)."""
 
     def __init__(self, cfg: Wav2Vec2Config, axis: tp.ModelAxis | None = None):
         super().__init__()
@@ -293,13 +450,32 @@ class EncoderLayer(nn.Module):
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.feed_forward = FeedForward(cfg, axis)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        # "save_cheap" lives in FeedForward; "no_probs" keeps what no remat keeps
+        self.remat = cfg.remat_policy if cfg.remat and cfg.remat_policy in ("full",
+                                                                         "save_resid") else None
+
+    def _tail(self, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        """Everything after the attention's output ``a``."""
+        if self.pre_ln:
+            x = x + a
+            return x + self.feed_forward(_layer_norm(x, self.final_layer_norm))
+        x = _layer_norm(x + a, self.layer_norm)
+        return _layer_norm(x + self.feed_forward(x), self.final_layer_norm)
+
+    def _layer(self, x: torch.Tensor) -> torch.Tensor:
+        h = _layer_norm(x, self.layer_norm) if self.pre_ln else x
+        return self._tail(x, self.attention(h))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.pre_ln:
-            x = x + self.attention(_layer_norm(x, self.layer_norm))
-            return x + self.feed_forward(_layer_norm(x, self.final_layer_norm))
-        x = _layer_norm(x + self.attention(x), self.layer_norm)
-        return _layer_norm(x + self.feed_forward(x), self.final_layer_norm)
+        if self.remat is None or not torch.is_grad_enabled():
+            return self._layer(x)
+        if self.remat == "full":
+            return _checkpoint(self._layer, x)
+        # save_resid: the attention block runs outside the checkpoints and
+        # keeps its q, k, v, o and lse; the LayerNorms and the FFN are
+        # recomputed from the layer input and the attention's output
+        h = _checkpoint(_layer_norm, x, self.layer_norm) if self.pre_ln else x
+        return _checkpoint(self._tail, x, self.attention(h))
 
 
 class Encoder(nn.Module):

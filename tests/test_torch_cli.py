@@ -11,6 +11,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from paa_tpu.cli import parser as jparser
 from paa_tpu.cli import run_attack as jrun
@@ -68,8 +69,6 @@ def test_same_argv_same_config(argv):
 @pytest.mark.parametrize("argv", [
     ["--attention_impl", "xla"],
     ["--no_pallas_fm"],
-    ["--remat"],
-    ["--remat_policy", "save_cheap"],
     ["--conv_impl", "hybrid"],
     ["--device_probe_timeout", "60"],
     ["--conv_impl", "im2col"],
@@ -81,6 +80,28 @@ def test_tpu_only_flags_are_refused(argv, capsys):
         tparser.parse_args(argv)
     assert e.value.code == 2
     assert argv[0] in capsys.readouterr().err
+
+
+REMAT_FLAGS = [(["--remat"], True, "save_cheap"),
+               (["--remat_policy", "save_cheap"], False, "save_cheap"),
+               (["--remat", "--no_remat"], False, "full")]
+REMAT_FLAGS += [(["--remat", "--remat_policy", p], True, p)
+                for p in ("full", "save_cheap", "no_probs", "save_resid")]
+
+
+@pytest.mark.parametrize("entry", ["run_attack", "sweep"])
+@pytest.mark.parametrize("argv, remat, policy", REMAT_FLAGS,
+                         ids=[" ".join(a) for a, _, _ in REMAT_FLAGS])
+def test_remat_flags_run(entry, argv, remat, policy):
+    """``--remat``, ``--no_remat`` and each ``--remat_policy`` parse on both
+    entry points (they were refused before remat was ported);
+    ``config_from_args`` sets ``remat``, and ``load_model`` builds the model
+    with the policy."""
+    parse = tparser.parse_args if entry == "run_attack" else tsweep.parse_args
+    args = parse(argv + ["--model", "wav2vec2-tiny", "--platform", "cpu"])
+    assert tparser.config_from_args(args).remat is remat
+    model = trun.load_model(args, torch.device("cpu"))
+    assert (model.cfg.remat, model.cfg.remat_policy) == (remat, policy)
 
 
 @pytest.mark.parametrize("entry", ["run_attack", "sweep"])

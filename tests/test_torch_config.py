@@ -60,9 +60,15 @@ def test_params_from_jax_matches_export_hf_state_dict(preset):
 
 
 def test_model_presets_match_reference_geometry():
+    """Every field of the port's config has the reference's value, but
+    ``remat_feature_extractor``: off in the port, on in the reference (the
+    port's config says why)."""
     for name in ("wav2vec2-tiny", "wav2vec2-base", "wav2vec2-large-lv60"):
         j, t = jw2v.get_config(name), tw2v.get_config(name)
         for f in dataclasses.fields(tw2v.Wav2Vec2Config):
+            if f.name == "remat_feature_extractor":
+                assert (t.remat_feature_extractor, j.remat_feature_extractor) == (False, True)
+                continue
             assert getattr(t, f.name) == getattr(j, f.name), (name, f.name)
         for n in (4000, 16000, 160000):
             assert t.feat_extract_output_length(n) == j.feat_extract_output_length(n)

@@ -302,6 +302,19 @@ def test_sharded_grad_matches_jax(results, layout):
         np.testing.assert_allclose(g, jg, atol=1e-3 * np.abs(jg).max())
 
 
+@pytest.mark.parametrize("layout", ["tp2", "dp2tp2"])
+def test_tp_full_remat_equals_remat_off(results, layout):
+    """Under tensor parallelism the full-remat layer's recompute replays
+    ``copy_to_model``'s and ``row_parallel``'s collectives in the backward,
+    every rank in the same order: loss, ids and ∂loss/∂p equal remat off's
+    bit for bit."""
+    got, _ = results
+    for r in _layout_ranks(got, layout):
+        loss, ids, grad = r["remat_full"]
+        assert torch.equal(loss, r["grad_loss"]) and torch.equal(ids, r["grad_ids"])
+        assert torch.equal(grad, r["grad"])
+
+
 @pytest.mark.parametrize("layout", LAYOUT_NAMES)
 def test_sharded_eval_matches_jax(results, layout):
     got, want = results

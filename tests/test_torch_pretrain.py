@@ -168,11 +168,14 @@ def test_optimizer_matches_optax_over_five_updates():
 GRAD_TOL = {"rtol": 1e-4, "atol_tensor": 1e-4, "atol_global": 1e-6}
 
 
-@pytest.mark.parametrize("layout", [{}, LV60_LAYOUT], ids=["tiny", "lv60_layout"])
+@pytest.mark.parametrize("layout", [{}, LV60_LAYOUT, dict(remat_ffn=True),
+                                    dict(LV60_LAYOUT, remat_ffn=True)],
+                         ids=["tiny", "lv60_layout", "tiny_remat_ffn", "lv60_layout_remat_ffn"])
 def test_loss_and_every_gradient_match_jax(layout):
     """Mean CTC and the gradient of every parameter, the weight-norm gain
     and direction and (lv60 layout) the feature extractor's LayerNorms
-    included, within ``GRAD_TOL``."""
+    included, within ``GRAD_TOL``; with ``remat_ffn`` the FFN's weight
+    gradients come from ``_FFNFn``'s backward (JAX's from ``_ffn``'s)."""
     jc, params, model = _pair(layout)
     batch = _batch()
     audio, labels, pads = _torch(batch)

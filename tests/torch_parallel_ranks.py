@@ -6,7 +6,8 @@ gloo process group on the CPU, and waits for them with a timeout. Modes:
 
   * ``steps``: the sharded train, eval and sweep steps of the tiny model on
     the inputs the parent wrote to ``workdir/inputs.pt``, for the layouts of
-    :data:`LAYOUTS`; each rank writes its results to ``workdir/rank<r>.pt``;
+    :data:`LAYOUTS` (with a model axis also ∂loss/∂p under full remat);
+    each rank writes its results to ``workdir/rank<r>.pt``;
   * ``cli``: ``paa_tpu_torch.cli.<module>.main(argv)`` with the argv in
     ``workdir/argv.json``; ranks other than 0 record every file they open for
     writing under the save root, and every rank records the JAX modules it
@@ -87,9 +88,13 @@ def _steps(workdir: str) -> dict:
     from paa_tpu_torch.parallel import mesh as mesh_lib, tp
 
     inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=True)
-    full = wav2vec2.Wav2Vec2ForCTC(wav2vec2.get_config("wav2vec2-tiny"))
-    full.load_state_dict(inp["state_dict"])
-    full.requires_grad_(False).eval()
+
+    def full_model(**over):
+        model = wav2vec2.Wav2Vec2ForCTC(wav2vec2.get_config("wav2vec2-tiny", **over))
+        model.load_state_dict(inp["state_dict"])
+        return model.requires_grad_(False).eval()
+
+    full = full_model()
     batch = [inp[k] for k in ("audio", "labels", "pads", "weights")]
     p0 = inp["p0"]
     out = {}
@@ -101,6 +106,9 @@ def _steps(workdir: str) -> dict:
         m = step.make_sharded_eval_step(cfg0, model, mesh)(p0, *batch)
         out[layout] = {"mesh": mesh.shape, "grad": grad, "grad_loss": loss, "grad_ids": ids,
                        "eval_loss": m.ctc_loss, "eval_ids": m.greedy_ids}
+        if tp_size > 1:  # the same under full remat: the recompute replays the collectives
+            remat = tp.shard_model(full_model(remat=True, remat_policy="full"), mesh)
+            out[layout]["remat_full"] = step._grad_fn(remat, cfg0, mesh)(p0, *batch)
         for name in cases:
             kw, steps, cp = CASES[name]
             cfg = AttackConfig(lr=LR, **kw)

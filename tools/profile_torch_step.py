@@ -10,18 +10,30 @@ compute, float32 parameters, every parameter's gradient, clip and Adam) on
 the first batch of 32 of its synthetic corpus (512 clips); it also times
 each convolution's weight gradient and input gradient alone (CUDA events,
 10 calls of ``aten.convolution_backward``) at the shapes the step gives it.
-Each runs one warm-up step, times two steps on the host clock, then runs
+Each runs one warm-up step, times ``--steps`` (2) on the host clock, then runs
 one step under ``torch.profiler``. It prints one JSON line: the step time,
 the device's busy share in the profiled step (the union of kernel
-intervals over the step's span in the trace), kernel time by group, and
-the top kernels by total device time. ``--trace`` keeps the Chrome trace at
-PATH. Needs one CUDA device; it never runs on the CPU.
+intervals over the step's span in the trace), kernel time by group, the
+top kernels by total device time, and the kernel time by model scope and
+kind (``by_scope_ms``): each kernel is charged to the innermost module
+scope around its launch, a kernel of the backward to the scope of the
+forward operation that made its autograd node (linked by sequence number),
+and split by kind (GELU, copies and casts, LayerNorm, reductions, other
+elementwise, matmul, conv, attention). ``--remat POLICY`` (and
+``--remat_ffn``, ``--remat_fe N`` for feature-extractor remat saving N
+layers) profiles the attack step under that remat setting. An attack
+step also reports its peak before the feature extractor's first conv
+layer's backward and from it on. ``--trace``
+keeps the Chrome trace at PATH. Needs one CUDA device; it never runs on
+the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import inspect
 import json
 import os
 import shutil
@@ -72,6 +84,134 @@ def group_of(name: str) -> str:
     return "other"
 
 
+# The model scopes of ``by_scope_ms``: (owner, attribute, label). Each is
+# wrapped in a ``record_function`` of its label for the profiled step only.
+SCOPES = (
+    (wav2vec2.Wav2Vec2ForCTC, "forward", "model: normalize, lm_head"),
+    (wav2vec2.ConvLayer, "forward", "feature extractor: conv, bias, GELU"),
+    (wav2vec2._ChannelLayerNorm, "apply", "feature extractor: LayerNorm"),
+    (wav2vec2.FeatureProjection, "forward", "feature projection"),
+    (wav2vec2.PositionalConvEmbedding, "forward", "positional conv"),
+    (wav2vec2.EncoderLayer, "forward", "encoder layer: residual adds"),
+    (wav2vec2.SelfAttention, "forward", "attention block"),
+    (wav2vec2.FeedForward, "forward", "FFN"),
+    (wav2vec2, "_layer_norm", "_layer_norm (encoder, feature projection)"),
+)
+OUTSIDE = "outside the model: CTC, update, projection"
+# kernel kinds, first match wins (lower-cased kernel name)
+KINDS = (
+    ("attention", ("attn_",)), ("K3", ("fm_",)), ("conv", ("wgrad", "dgrad", "fprop", "conv",
+                                                          "cudnn", "implicit")),
+    ("matmul", ("gemm", "cutlass", "xmma", "nvjet")), ("GELU", ("gelu",)),
+    ("LayerNorm kernels", ("layer_norm", "layernorm", "gammabeta")),
+    ("copies and casts", ("copy",)), ("reductions", ("reduce",)),
+)
+
+
+def kind_of(name: str) -> str:
+    low = name.lower()
+    for label, keys in KINDS:
+        if any(k in low for k in keys):
+            return label
+    return "other elementwise"
+
+
+@contextlib.contextmanager
+def scoped_model():
+    """Wrap each of :data:`SCOPES` in a ``record_function`` of its label."""
+    saved = []
+    for owner, attr, label in SCOPES:
+        fn = inspect.getattr_static(owner, attr)
+        inner = fn.__func__ if isinstance(fn, (classmethod, staticmethod)) else fn
+        if isinstance(fn, classmethod):  # autograd.Function.apply
+            def wrapped(cls, *a, _f=inner, _label=label, **k):
+                with torch.profiler.record_function(_label):
+                    return _f(cls, *a, **k)
+            new = classmethod(wrapped)
+        else:
+            def wrapped(*a, _f=inner, _label=label, **k):
+                with torch.profiler.record_function(_label):
+                    return _f(*a, **k)
+            new = wrapped
+        saved.append((owner, attr, fn, attr in vars(owner)))
+        setattr(owner, attr, new)
+    try:
+        yield
+    finally:
+        for owner, attr, fn, own in reversed(saved):
+            if own:
+                setattr(owner, attr, fn)
+            else:  # inherited (autograd.Function.apply)
+                delattr(owner, attr)
+
+
+def by_scope(events: list, labels: set) -> dict:
+    """Kernel ms by (scope, kind). A kernel's launch is found by its
+    correlation id; the CPU events around the launch on its thread, from the
+    innermost out, give the scope: one of ``labels``, or an autograd node
+    (``evaluate_function``) whose sequence number names the forward
+    operation that made it, whose own innermost scope is taken."""
+    cpu = collections.defaultdict(list)
+    launches = {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        if e.get("cat") in ("cpu_op", "user_annotation"):
+            cpu[e["tid"]].append(e)
+        elif e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
+            launches[e["args"]["correlation"]] = e
+    chains = {}  # correlation id -> enclosing CPU events, outermost first
+    for tid, evs in cpu.items():
+        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
+        points = sorted((e for e in launches.values() if e["tid"] == tid), key=lambda e: e["ts"])
+        stack, i = [], 0
+        for pt in points:
+            while i < len(evs) and evs[i]["ts"] <= pt["ts"]:
+                while stack and stack[-1]["ts"] + stack[-1]["dur"] < evs[i]["ts"]:
+                    stack.pop()
+                stack.append(evs[i])
+                i += 1
+            while stack and stack[-1]["ts"] + stack[-1]["dur"] < pt["ts"]:
+                stack.pop()
+            chains[pt["args"]["correlation"]] = list(stack)
+    # sequence number -> the innermost scope of the forward operation that
+    # made that autograd node. An operation records the number the next node
+    # will take, so the last one to record it (by start time) made the node.
+    # Only the forward's threads (those that enter a scope) count: the
+    # backward's threads number their own operations from another counter.
+    fwd_scope = {}
+    for evs in cpu.values():
+        if not any(e["name"] in labels for e in evs):
+            continue
+        stack = []
+        for e in evs:
+            while stack and stack[-1]["ts"] + stack[-1]["dur"] < e["ts"]:
+                stack.pop()
+            seq = e.get("args", {}).get("Sequence number")
+            if (seq is not None and "evaluate_function" not in e["name"]
+                    and not any("evaluate_function" in s["name"] for s in stack)):
+                fwd_scope[seq] = next((s["name"] for s in reversed(stack) if s["name"] in labels),
+                                      OUTSIDE)
+            stack.append(e)
+
+    def scope(chain) -> str:
+        for e in reversed(chain):
+            if e["name"] in labels:
+                return e["name"]
+            if "evaluate_function" in e["name"]:
+                seq = e.get("args", {}).get("Sequence number")
+                return fwd_scope.get(seq, OUTSIDE)
+        return OUTSIDE
+
+    out = collections.defaultdict(lambda: collections.defaultdict(float))
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            chain = chains.get(e.get("args", {}).get("correlation"), [])
+            out[scope(chain)][kind_of(e["name"])] += e["dur"] / 1e3
+    return {k: dict(sorted(v.items(), key=lambda kv: -kv[1]))
+            for k, v in sorted(out.items(), key=lambda kv: -sum(kv[1].values()))}
+
+
 def busy_share(trace_path: str) -> tuple[float, float, float]:
     """(kernel time ms, union of kernel intervals ms, span ms) of the trace."""
     with open(trace_path) as f:
@@ -92,10 +232,11 @@ def busy_share(trace_path: str) -> tuple[float, float, float]:
     return total / 1e3, union / 1e3, (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
 
 
-def attack_step(preset: str, dev):
-    """Phase 4's or 5's attack step: (one_step, description)."""
+def attack_step(preset: str, dev, overrides: dict):
+    """Phase 4's or 5's attack step, the model config with ``overrides``:
+    (one_step, description)."""
     name, B, T, accum = PRESETS[preset]
-    model = wav2vec2.init_model(wav2vec2.get_config(name), seed=0)
+    model = wav2vec2.init_model(wav2vec2.get_config(name, **overrides), seed=0)
     model = model.cast_param_storage(torch.bfloat16).to(dev)
     cfg = AttackConfig(norm_type="fletcher_munson", optimizer_type="pgd", lr=1e-4,
                        accum_steps=accum, model_name=name)
@@ -114,7 +255,47 @@ def attack_step(preset: str, dev):
         nonlocal p, opt
         p, opt, _ = train(p, opt, audio, labels, pads, weights, cparams, cfg.lr)
 
-    return one_step, {"model": name, "batch": B, "samples": T, "accum_steps": accum}
+    return one_step, {"model": name, "batch": B, "samples": T, "accum_steps": accum,
+                      **overrides, **fe_layer0_backward_peak(one_step, model, dev)}
+
+
+def fe_layer0_backward_peak(one_step, model, dev) -> dict:
+    """One more step, its peak split at the feature extractor's first conv
+    layer, whose backward comes last in each microbatch's: the peak from a
+    microbatch's forward to that backward, and from there to the
+    microbatch's end (GiB). A tensor hook on the layer's output marks the
+    point; it keeps nothing alive. Not with feature-extractor remat, which
+    would run the layer twice (a checkout from before it has no such field)."""
+    if getattr(model.cfg, "remat_feature_extractor", False):
+        return {}
+    peak = {"before": 0, "inside": 0}
+    state = {"part": "before"}
+
+    def close(part):
+        peak[part] = max(peak[part], torch.cuda.max_memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def at_forward(_module, _args):
+        close(state["part"])
+        state["part"] = "before"
+
+    def at_layer0_grad(_grad):
+        close("before")
+        state["part"] = "inside"
+
+    def mark(_module, _args, out):  # returns None: the output stays as it is
+        out.register_hook(at_layer0_grad)
+
+    layer0 = model.wav2vec2.feature_extractor.conv_layers[0]
+    hooks = [model.register_forward_pre_hook(at_forward), layer0.register_forward_hook(mark)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    one_step()
+    torch.cuda.synchronize()
+    close(state["part"])
+    for h in hooks:
+        h.remove()
+    return {"peak_before_fe_layer0_backward_gib": peak["before"] / 2**30,
+            "peak_from_fe_layer0_backward_gib": peak["inside"] / 2**30}
 
 
 def conv_grad_ms(model, audio, iters: int = 10) -> dict:
@@ -183,24 +364,39 @@ def main() -> int:
     ap.add_argument("preset", nargs="?", default="lv60", choices=sorted(PRESETS) + ["pretrain"])
     ap.add_argument("--trace", default=None, help="keep the Chrome trace here")
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--steps", type=int, default=2, help="timed steps")
+    ap.add_argument("--remat", default=None, choices=["full", "save_cheap", "no_probs",
+                                                      "save_resid"])
+    ap.add_argument("--remat_ffn", action="store_true")
+    ap.add_argument("--remat_fe", type=int, default=None,
+                    help="feature-extractor remat, saving this many conv layers' outputs")
     args = ap.parse_args()
+    overrides = {}
+    if args.remat:
+        overrides.update(remat=True, remat_policy=args.remat)
+    if args.remat_ffn:
+        overrides["remat_ffn"] = True
+    if args.remat_fe is not None:
+        overrides.update(remat_feature_extractor=True, remat_fe_save_layers=args.remat_fe)
     if not torch.cuda.is_available():
         print("profile_torch_step.py: no CUDA device", file=sys.stderr)
         return 1
     dev = runtime.require_cuda()
     one_step, info = (pretrain_step(dev) if args.preset == "pretrain"
-                      else attack_step(args.preset, dev))
+                      else attack_step(args.preset, dev, overrides))
 
     one_step()  # warm-up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    for _ in range(2):
+    for _ in range(args.steps):
         one_step()
     torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / 2
+    step_s = (time.perf_counter() - t0) / args.steps
+    peak = torch.cuda.max_memory_allocated(dev)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with scoped_model(), torch.profiler.profile(activities=acts) as prof:
         one_step()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
@@ -210,10 +406,12 @@ def main() -> int:
         by_name = collections.Counter()
         calls = collections.Counter()
         with open(trace) as f:
-            for e in json.load(f)["traceEvents"]:
-                if e.get("ph") == "X" and e.get("cat") == "kernel":
-                    by_name[e["name"]] += e["dur"] / 1e3
-                    calls[e["name"]] += 1
+            events = json.load(f)["traceEvents"]
+        for e in events:
+            if e.get("ph") == "X" and e.get("cat") == "kernel":
+                by_name[e["name"]] += e["dur"] / 1e3
+                calls[e["name"]] += 1
+        scopes = by_scope(events, {label for _, _, label in SCOPES})
         if args.trace:
             os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
             shutil.copy(trace, args.trace)
@@ -225,7 +423,8 @@ def main() -> int:
         "preset": args.preset, **info, "card": smi, "step_s": step_s, "profiled_span_ms": span_ms,
         "kernel_ms": kernel_ms, "busy_ms": busy_ms,
         "busy_share": busy_ms / span_ms if span_ms else None,
-        "groups_ms": dict(groups.most_common()),
+        "peak_mem_gib": peak / 2**30, "groups_ms": dict(groups.most_common()),
+        "by_scope_ms": scopes,
         "top_kernels": [{"name": k[:120], "ms": ms, "calls": calls[k]}
                         for k, ms in by_name.most_common(args.top)],
     }), flush=True)
