@@ -122,6 +122,23 @@ line:
                the run without it (eval has no backward), finite results,
                launches as its steps ask. It runs after phase 6, whose lv60
                run it needs.
+ 12. lowerings — the feature extractor's conv lowerings (``conv_impl``) and
+               ``fused_qkv``, after phase 11: (a) base at phase 4's shape on
+               phase 4's weights under conv, hybrid, pairdot, im2col and
+               tapdot, each 1 warm-up and 2 timed steps: step time, peak,
+               K1/K2/K3 launches a train step equal to phase 4's, the
+               feature extractor's forward and backward ms apart (CUDA
+               events around it and its ``autograd.grad``, one microbatch;
+               ``tools/conv_impl_ab.py``), and the first loss and ∂loss/∂p
+               at p = 0 within PAR_TOL of conv's (conv's first loss
+               bit-equal to phase 4's); (b) the same at phase 5's shape on
+               its weights, against phase 5; (c) base's geometry at depth 2,
+               B=2 × 1 s, float32 with TF32 off: each lowering's logits and
+               ∂logits/∂audio within 1e-4 of conv's largest value; (d)
+               ``fused_qkv`` at phase 4's shape as (a) runs it, against (a)'s
+               conv; (e) phase 6 (a)'s anchor ``run_attack`` with
+               ``--conv_impl hybrid``: clean test scores within the anchor's
+               tolerance of phase 6 (a)'s, launches as its steps ask.
 
 Then K1/K2's register route (head dim 16) at the anchor's shape, the kernels
 line ``{"kernels": [...]}`` (per kernel and the runs it counts: launches in
@@ -134,7 +151,6 @@ instead. The CLI and sweep runs write under ``chiprun_out/chip_smoke/``.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 import hashlib
 import importlib.util
@@ -203,6 +219,9 @@ def load_tool(name: str):
 # calls), and K3's device operations (the nodes of a CUDA graph of one call,
 # and torch.profiler's names)
 fm_profile = load_tool("fm_norm_profile")
+# a model on another's weights under another config (phases 11 and 12), and
+# the whole-FE timer (CUDA events around the FE and its autograd.grad)
+conv_ab = load_tool("conv_impl_ab")
 
 
 def emit(obj: dict) -> None:
@@ -606,8 +625,8 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
           "launches": launches, "launches_per_train_step": per_step})
     check(finite, f"{phase}: non-finite loss or perturbation")
     check(p_abs > 0.0, f"{phase}: the perturbation did not change")
-    out = {"launches": launches, "step_s": step_s, "peak": peak, "first_loss": losses[0],
-           "model": model}
+    out = {"launches": launches, "per_step": per_step, "step_s": step_s, "peak": peak,
+           "first_loss": losses[0], "model": model}
     if grad:
         p0 = torch.zeros((1, T), device=dev)
         out["grad"] = step._grad_and_metrics(model, cfg, p0, audio, labels, pads, weights)[2]
@@ -1545,14 +1564,6 @@ REMAT_A1 = dict(remat=True, remat_policy="full", remat_feature_extractor=True,
 REMAT_CLI_ARGV = LV60_CLI_ARGV + ["--remat"]  # (c): save_cheap, the policy --remat resolves
 
 
-def remat_model(base, **over) -> wav2vec2.Wav2Vec2ForCTC:
-    """``base``'s weights, the same tensors, under its config with ``over``."""
-    with torch.device("meta"):
-        model = wav2vec2.Wav2Vec2ForCTC(dataclasses.replace(base.cfg, **over))
-    model.load_state_dict(base.state_dict(), assign=True)
-    return model.requires_grad_(False).eval()
-
-
 def phase_remat(dev, card: str, lv60: dict, cli_lv60: dict) -> dict:
     """Returns the launch counts of its runs."""
     t_phase = time.perf_counter()
@@ -1561,7 +1572,7 @@ def phase_remat(dev, card: str, lv60: dict, cli_lv60: dict) -> dict:
     # (a) phase 5's configuration under each remat setting
     for name, over in REMAT_RUNS:
         run = phase_full_width(dev, name, "wav2vec2-large-lv60", LV60_B, LV60_T, LV60_ACCUM, 2,
-                               card, model=remat_model(lv60["model"], **over), grad=True)
+                               card, model=conv_ab.with_config(lv60["model"], **over), grad=True)
         g = run.pop("grad")
         result = {"first_loss": run["first_loss"], "off_first_loss": lv60["first_loss"],
                   "first_loss_bit_equal": run["first_loss"] == lv60["first_loss"],
@@ -1586,7 +1597,7 @@ def phase_remat(dev, card: str, lv60: dict, cli_lv60: dict) -> dict:
 
     # (b) B=64 × 20 s in one microbatch
     run = phase_full_width(dev, "remat_a1", "wav2vec2-large-lv60", LV60_B, LV60_T, 1, 2, card,
-                           model=remat_model(lv60["model"], **REMAT_A1))
+                           model=conv_ab.with_config(lv60["model"], **REMAT_A1))
     emit({"phase": "remat", "run": "remat_a1", **REMAT_A1, "accum_steps": 1,
           "step_s": run["step_s"], "peak_mem_gib": run["peak"] / 2**30,
           "phase5_step_s": lv60["step_s"], "phase5_peak_mem_gib": lv60["peak"] / 2**30,
@@ -1614,6 +1625,146 @@ def phase_remat(dev, card: str, lv60: dict, cli_lv60: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the feature extractor's conv lowerings and fused_qkv
+# ---------------------------------------------------------------------------
+
+CONV_IMPLS = ("conv", "hybrid", "pairdot", "im2col", "tapdot")
+# (c): each lowering's logits and ∂logits/∂audio against conv's in float32,
+# TF32 off, as max |Δ| / max |conv's|: sums in another order, no bf16
+LOWERING_F32_TOL = 1e-4
+LOWERING_CLI_ARGV = ANCHOR_ARGV + ["--conv_impl", "hybrid"]  # (e)
+
+
+def lowering_run(dev, name: str, preset: str, B: int, T: int, accum: int, card: str,
+                 model, ref: dict | None, per_step: dict) -> dict:
+    """One phase-12 configuration at full width: 1 warm-up and 2 timed
+    steps (phase_full_width), launches a train step equal to ``per_step``
+    (phase 4's or 5's), the feature extractor's forward and backward times
+    on one microbatch, and the first loss and ∂loss/∂p at p = 0 against
+    ``ref``'s (the same preset under conv; None for conv itself)."""
+    run = phase_full_width(dev, name, preset, B, T, accum, 2, card, model=model, grad=True)
+    fe = conv_ab.fe_times(run["model"], full_width_batch(B, T, dev)[0][: B // accum])
+    out = {"conv_impl": model.cfg.conv_impl, "fused_qkv": model.cfg.fused_qkv,
+           "step_s": run["step_s"], "peak_mem_gib": run["peak"] / 2**30, **fe,
+           "first_loss": run["first_loss"], "launches_per_train_step": run["per_step"]}
+    if ref is not None:
+        g, g0 = run["grad"], ref["grad"]
+        out.update(ref_first_loss=ref["first_loss"],
+                   loss_rel_err=abs(run["first_loss"] - ref["first_loss"]) / abs(ref["first_loss"]),
+                   grad_max_rel_err=float((g - g0).abs().max() / g0.abs().max()),
+                   pgd_sign_agreement=float((torch.sign(g) == torch.sign(g0)).float().mean()))
+    emit({"phase": "lowerings", "run": name, "model": preset, "batch": B, "samples": T,
+          "accum_steps": accum, **out, "tolerance": PAR_TOL, "card": card})
+    check(run["per_step"] == per_step, f"lowerings {name}: launches a step {run['per_step']}, "
+                                       f"want {per_step}")
+    if ref is not None:
+        check(out["loss_rel_err"] <= PAR_TOL["loss_rel"], f"lowerings {name}: loss {out}")
+        check(out["grad_max_rel_err"] <= PAR_TOL["grad_rel"], f"lowerings {name}: grad {out}")
+        check(out["pgd_sign_agreement"] >= PAR_TOL["sign_agreement_min"],
+              f"lowerings {name}: signs {out}")
+    return {"launches": run["launches"], "first_loss": run["first_loss"], "grad": run["grad"]}
+
+
+def lowering_f32(dev, card: str) -> None:
+    """(c) wav2vec2-base's geometry at depth 2, B=2 × 1 s, float32 with TF32
+    off (runtime.require_cuda): each lowering's logits and ∂(Σ logits·ct)/
+    ∂audio against conv's, and K1/K2's register route launched in each."""
+    base = wav2vec2.init_model(wav2vec2.get_config(
+        "wav2vec2-base", num_hidden_layers=2, compute_dtype="float32"), seed=SEED).to(dev)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    audio = torch.randn((2, 16_000), device=dev, generator=gen) * 0.1
+    ct = None
+    got, launches = {}, {}
+    for impl in CONV_IMPLS:
+        model = conv_ab.with_config(base, conv_impl=impl)
+        a = audio.clone().requires_grad_(True)
+        _lib.reset_launches()
+        logits = model(a)
+        if ct is None:
+            ct = torch.randn(logits.shape, device=dev, generator=gen)
+        (g,) = torch.autograd.grad((logits * ct).sum(), a)
+        launches[impl] = dict(_lib.launches)
+        got[impl] = (logits.detach(), g)
+    l0, g0 = got["conv"]
+    errs = {impl: {"logits_rel_err": float((l - l0).abs().max() / l0.abs().max()),
+                   "grad_rel_err": float((g - g0).abs().max() / g0.abs().max())}
+            for impl, (l, g) in got.items() if impl != "conv"}
+    emit({"phase": "lowerings", "run": "f32_exactness", "model": "wav2vec2-base", "layers": 2,
+          "batch": 2, "samples": 16_000, "compute_dtype": "float32",
+          "tf32": [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32],
+          "errors": errs, "tolerance": LOWERING_F32_TOL, "launches": launches, "card": card})
+    check(not (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32),
+          "lowerings f32: TF32 is on")
+    for impl, e in errs.items():
+        check(max(e.values()) <= LOWERING_F32_TOL, f"lowerings f32 {impl}: {e}")
+    for impl, n in launches.items():  # float32 at head dim 64: the register route
+        check(n["attention_fwd"] == 2 and n["attention_bwd"] == 2,
+              f"lowerings f32 {impl}: launched {n}")
+
+
+def phase_lowerings(dev, card: str, main: dict, lv60: dict, anchor: dict) -> dict:
+    """Returns the launch counts of its runs."""
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) base at phase 4's shape: phase 4's weights (init_model from SEED)
+    base = wav2vec2.init_model(wav2vec2.get_config("wav2vec2-base"), seed=SEED)
+    base = base.cast_param_storage(torch.bfloat16).to(dev)
+    ref = None
+    for impl in CONV_IMPLS:
+        name = f"lowering_base_{impl}"
+        run = lowering_run(dev, name, "wav2vec2-base", MAIN_B, MAIN_T, 1, card,
+                           conv_ab.with_config(base, conv_impl=impl), ref, main["per_step"])
+        if ref is None:  # conv: phase 4's configuration, so its first loss
+            check(run["first_loss"] == main["first_loss"],
+                  f"lowerings: conv's first loss {run['first_loss']} against phase 4's "
+                  f"{main['first_loss']}")
+            ref = run
+        out[name] = run.pop("launches")
+        torch.cuda.empty_cache()
+    # (d) fused_qkv at phase 4's shape, against (a)'s conv run
+    run = lowering_run(dev, "fused_qkv", "wav2vec2-base", MAIN_B, MAIN_T, 1, card,
+                       conv_ab.with_config(base, fused_qkv=True), ref, main["per_step"])
+    out["fused_qkv"] = run["launches"]
+    del base, ref, run
+    torch.cuda.empty_cache()
+    # (b) lv60 at phase 5's shape, on phase 5's weights
+    ref = None
+    for impl in CONV_IMPLS:
+        name = f"lowering_lv60_{impl}"
+        model = conv_ab.with_config(lv60["model"], conv_impl=impl)
+        run = lowering_run(dev, name, "wav2vec2-large-lv60", LV60_B, LV60_T, LV60_ACCUM, card,
+                           model, ref, lv60["per_step"])
+        if ref is None:
+            check(run["first_loss"] == lv60["first_loss"],
+                  f"lowerings: conv's first loss {run['first_loss']} against phase 5's "
+                  f"{lv60['first_loss']}")
+            ref = run
+        out[name] = run.pop("launches")
+        torch.cuda.empty_cache()
+    del ref
+    torch.cuda.empty_cache()
+    # (c) float32 exactness
+    lowering_f32(dev, card)
+    # (e) the CLI anchor with --conv_impl hybrid against phase 6 (a)'s run
+    res, facts, launches = run_cli("anchor_hybrid", LOWERING_CLI_ARGV)
+    clean, ref_clean = res["final_test_clean"], anchor["final_test_clean"]
+    ctc_rel = abs(clean["ctc"] - ref_clean["ctc"]) / ref_clean["ctc"]
+    wer_abs = abs(clean["wer"] - ref_clean["wer"])
+    want = expected_cli_launches(LOWERING_CLI_ARGV, facts, fm=False, route="")
+    emit({"phase": "lowerings", "run": "cli_anchor_hybrid", **facts, "final_test_clean": clean,
+          "conv_final_test_clean": ref_clean, "ctc_rel_err": ctc_rel, "wer_abs_err": wer_abs,
+          "tolerance": ANCHOR_TOL, "launches": launches, "want_launches": want,
+          "wall_s": time.perf_counter() - t_phase, "card": card})
+    check(res.get("finished_training") is True, "lowerings cli: the run did not finish")
+    check(ctc_rel <= ANCHOR_TOL["ctc_rel"], f"lowerings cli: clean CTC {clean} against {ref_clean}")
+    check(wer_abs <= ANCHOR_TOL["wer_abs"], f"lowerings cli: clean WER {clean} against {ref_clean}")
+    check(facts["audio_len"] == anchor["audio_len"], f"lowerings cli: clips {facts['audio_len']}")
+    check(launches == want, f"lowerings cli: launched {launches}, want {want}")
+    out["anchor_hybrid"] = launches
+    return out
+
+
 # (row name, launch counter, source, TPU kernel it replaces, runs whose
 # launches it reports, check at those runs' shapes and direction it takes
 # its numbers from). The base sweep's clips are longer than phase 4's, so
@@ -1629,12 +1780,16 @@ K2_TPU = "paa_tpu/ops/pallas/attention.py:133 (_bwd_kernel, via _attend_bwd :218
 K4_TPU = "paa_tpu/models/wav2vec2.py:766 (_flash_attention, stock Pallas flash_attention, {})"
 K3_TPU = "paa_tpu/ops/pallas/fm_norm.py:40 (_kernel, via fm_weighted_power_sum :61)"
 REMAT_NAMES = tuple(name for name, _ in REMAT_RUNS)  # phase 11 (a), at phase 5's shapes
+# phase 12 (a) and (d), at phase 4's shapes; (b), at phase 5's
+LOWERING_BASE_NAMES = tuple(f"lowering_base_{impl}" for impl in CONV_IMPLS) + ("fused_qkv",)
+LOWERING_LV60_NAMES = tuple(f"lowering_lv60_{impl}" for impl in CONV_IMPLS)
 KERNELS = (
     ("attention_fwd", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu", K1_TPU,
-     ("main",), "attention", "fwd"),
+     ("main",) + LOWERING_BASE_NAMES, "attention", "fwd"),
     ("attention_bwd", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu", K2_TPU,
-     ("main",), "attention", "bwd"),
-    ("fm_norm", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU, ("main",), "fm_norm", None),
+     ("main",) + LOWERING_BASE_NAMES, "attention", "bwd"),
+    ("fm_norm", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU, ("main",) + LOWERING_BASE_NAMES,
+     "fm_norm", None),
     ("attention_fwd_sweep", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
      K1_TPU, ("sweep", "feed_host", "feed_device"), "attention_sweep", "fwd"),
     ("attention_bwd_sweep", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
@@ -1642,18 +1797,20 @@ KERNELS = (
     ("fm_norm_sweep", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU,
      ("sweep", "feed_host", "feed_device"), "fm_norm_sweep", None),
     ("flash_attention_fwd", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
-     K4_TPU.format("forward"), ("lv60",) + REMAT_NAMES, "attention_long", "fwd"),
+     K4_TPU.format("forward"), ("lv60",) + REMAT_NAMES + LOWERING_LV60_NAMES, "attention_long",
+     "fwd"),
     ("flash_attention_bwd", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
-     K4_TPU.format("backward"), ("lv60",) + REMAT_NAMES, "attention_long", "bwd"),
+     K4_TPU.format("backward"), ("lv60",) + REMAT_NAMES + LOWERING_LV60_NAMES, "attention_long",
+     "bwd"),
     # phase 11 (b): lv60's whole batch of 64 in one microbatch
     ("flash_attention_fwd_a1", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
      K4_TPU.format("forward"), ("remat_a1",), "attention_long_a1", "fwd"),
     ("flash_attention_bwd_a1", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
      K4_TPU.format("backward"), ("remat_a1",), "attention_long_a1", "bwd"),
     ("attention_fwd_reg", "attention_fwd", "paa_tpu_torch/csrc/attention_fwd.cu", K1_TPU,
-     ("anchor", "sweep_anchor", "sweep_two_ranks"), "attention_tiny", "fwd"),
+     ("anchor", "sweep_anchor", "sweep_two_ranks", "anchor_hybrid"), "attention_tiny", "fwd"),
     ("attention_bwd_reg", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
-     ("anchor", "sweep_anchor", "sweep_two_ranks"), "attention_tiny", "bwd"),
+     ("anchor", "sweep_anchor", "sweep_two_ranks", "anchor_hybrid"), "attention_tiny", "bwd"),
     ("attention_fwd_pretrain", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
      K1_TPU, ("pretrain_base",), "attention_pretrain", "fwd"),
     ("attention_bwd_pretrain", "attention_bwd_sm90", "paa_tpu_torch/csrc/attention_bwd_sm90.cu",
@@ -1663,7 +1820,7 @@ KERNELS = (
     ("attention_bwd_reg_pretrain", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu",
      K2_TPU, ("pretrain_tiny",), "attention_pretrain_tiny", "bwd"),
     ("fm_norm_lv60", "fm_norm", "paa_tpu_torch/csrc/fm_norm.cu", K3_TPU,
-     ("lv60",) + REMAT_NAMES + ("remat_a1",), "fm_norm_lv60", None),
+     ("lv60",) + REMAT_NAMES + ("remat_a1",) + LOWERING_LV60_NAMES, "fm_norm_lv60", None),
     # phase 9: each rank's shapes; the 2-rank sweep runs the anchor's shape
     ("attention_fwd_dp", "attention_fwd_sm90", "paa_tpu_torch/csrc/attention_fwd_sm90.cu",
      K1_TPU, ("par_dp",), "attention_dp", "fwd"),
@@ -1733,6 +1890,8 @@ def main() -> int:
     launches.update(phase_cli(smi))
     torch.cuda.empty_cache()
     launches.update(phase_remat(dev, smi, lv60_run, launches.pop("cli_lv60_run")))
+    torch.cuda.empty_cache()
+    launches.update(phase_lowerings(dev, smi, main_run, lv60_run, launches["anchor_run"]))
     del lv60_run
     torch.cuda.empty_cache()
     anchor = launches.pop("anchor_run")

@@ -72,8 +72,8 @@ def load_model(args, device: torch.device) -> wav2vec2.Wav2Vec2ForCTC:
     overrides = {"do_normalize": False} if args.no_input_normalize else {}
     remat, remat_policy = parser_lib.resolve_remat(args)
     mcfg = wav2vec2.get_config(args.model, compute_dtype=args.compute_dtype,
-                               fe_gelu=args.fe_gelu, remat=remat, remat_policy=remat_policy,
-                               **overrides)
+                               fe_gelu=args.fe_gelu, conv_impl=args.conv_impl, remat=remat,
+                               remat_policy=remat_policy, **overrides)
 
     def from_state_dict(sd: dict) -> wav2vec2.Wav2Vec2ForCTC:
         model = wav2vec2.Wav2Vec2ForCTC(mcfg)

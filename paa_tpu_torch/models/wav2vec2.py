@@ -13,8 +13,13 @@ Numerics follow the reference's placement:
   * matmuls and convs run in ``compute_dtype`` (bf16 for base, f32 for tiny);
   * the layer-0 GroupNorm and every LayerNorm take float32 statistics and
     return the compute dtype; the feature extractor's per-layer LayerNorm
-    keeps only its compute-dtype input for the backward, never a float32
-    copy of the layer;
+    (``_FeNorm``) keeps only its compute-dtype input for the backward, never
+    a float32 copy of the layer;
+  * the feature extractor's convs run under one of five lowerings
+    (``conv_impl``): cuDNN's conv on (B, C, T), or pairdot, im2col, tapdot
+    or hybrid (cuDNN forward, ``_HybridConvFn``'s phase-matmul backward)
+    on the reference's (B, T, C);
+  * ``fused_qkv`` computes q, k and v in one product a layer;
   * the encoder's and the feature projection's LayerNorms (``_LayerNormFn``)
     take the reference's fast variance, ``max(E[x²] − E[x]², 0)``, and keep
     only x̂ in the input's dtype and 1/std for the backward; the FFN's GELU
@@ -95,11 +100,30 @@ class Wav2Vec2Config:
     # the hidden in the backward, under any remat policy or none.
     remat_ffn: bool = False
     fe_gelu: str = "auto"  # "auto" | "exact" | "tanh"
+    # The feature extractor's conv lowering. Every lowering computes the same
+    # VALID strided conv from the one nn.Conv1d weight (C_out, C_in, k), so
+    # checkpoints and the HF names do not depend on it:
+    #   "conv": F.conv1d (cuDNN) on the (B, C, T) layout;
+    #   "pairdot": time reshaped into stride-sized phases, (B, T/s, s·C), and
+    #     the conv as ceil(k/s) unit-stride products over contiguous time
+    #     (the last block's missing taps are zero rows of the weight);
+    #   "im2col": the (B, T_out, C·k) patches (Tensor.unfold) and one product;
+    #   "tapdot": Σ_r x[:, r::s] @ W_r, one product a tap and no patch buffer
+    #     (layer 0, with one input channel, runs im2col);
+    #   "hybrid": F.conv1d forward, pairdot's transpose as the backward
+    #     (_HybridConvFn).
+    # Every lowering but "conv" runs the stack on the reference's (B, T, C)
+    # layout, norms included, and accumulates its taps and blocks in float32.
+    conv_impl: str = "conv"
+    # q, k and v as one (3·H, H) product a layer, the q scale folded into q's
+    # weight and bias; the three HF parameter pairs stay as they are.
+    fused_qkv: bool = False
 
     def __post_init__(self):
         for name, allowed in (("feat_extract_norm", ("group", "layer")),
                               ("remat_policy", ("full", "save_cheap", "no_probs", "save_resid")),
-                              ("fe_gelu", ("auto", "exact", "tanh"))):
+                              ("fe_gelu", ("auto", "exact", "tanh")),
+                              ("conv_impl", ("conv", "pairdot", "im2col", "tapdot", "hybrid"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name}={getattr(self, name)!r}; expected one of {allowed}")
 
@@ -247,21 +271,26 @@ class _FFNFn(torch.autograd.Function):
         return dy, dik, dib, dok, dob
 
 
-class _ChannelLayerNorm(torch.autograd.Function):
-    """LayerNorm over the channels of a ``(B, C, T)`` activation: float32
-    statistics, output in the input's dtype. The backward keeps the input
-    (in its own dtype) and the per-frame mean and 1/std, and recomputes the
-    normalised value from them; stock autograd of a float32 LayerNorm would
-    keep a float32 copy of every feature-extractor layer (the reference
-    keeps it out of HBM the same way, ``_FeNorm``)."""
+class _FeNorm(torch.autograd.Function):
+    """The feature extractor's LayerNorm over the channel axis ``dim`` (1 of
+    a ``(B, C, T)`` activation, 2 of a ``(B, T, C)`` one): float32
+    statistics, output in the input's dtype (reference: ``_FeNorm``). The
+    backward keeps the input (in its own dtype) and the per-frame mean and
+    1/std, and recomputes the normalised value from them; stock autograd of
+    a float32 LayerNorm would keep a float32 copy of every
+    feature-extractor layer (the reference keeps it out of HBM the same
+    way)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps: float):
+    def forward(ctx, x, weight, bias, eps: float, dim: int):
+        shape = [1] * x.dim()
+        shape[dim] = -1
         xf = x.to(torch.float32, copy=True)
-        var, mu = torch.var_mean(xf, dim=1, correction=0, keepdim=True)
+        var, mu = torch.var_mean(xf, dim=dim, correction=0, keepdim=True)
         rstd = torch.rsqrt(var + eps)
-        y = xf.sub_(mu).mul_(rstd).mul_(weight[:, None]).add_(bias[:, None]).to(x.dtype)
+        y = xf.sub_(mu).mul_(rstd).mul_(weight.view(shape)).add_(bias.view(shape)).to(x.dtype)
         ctx.save_for_backward(x, mu, rstd, weight)
+        ctx.dim = dim
         return y
 
     @staticmethod
@@ -269,15 +298,169 @@ class _ChannelLayerNorm(torch.autograd.Function):
         # in place where it can be: at 20 s and B=32 one float32 copy of
         # layer 0 is 4.2 GB, and this keeps three of them alive at a time
         x, mu, rstd, weight = ctx.saved_tensors
+        dim = ctx.dim
+        shape = [1] * x.dim()
+        shape[dim] = -1
+        others = tuple(d for d in range(x.dim()) if d != dim)
         xhat = x.to(torch.float32, copy=True).sub_(mu).mul_(rstd)
         gf = g.to(torch.float32, copy=True)
-        dw = (gf * xhat).sum((0, 2)) if ctx.needs_input_grad[1] else None
-        db = gf.sum((0, 2)) if ctx.needs_input_grad[2] else None
-        dxhat = gf.mul_(weight[:, None])
-        m1 = dxhat.mean(1, keepdim=True)
-        m2 = (dxhat * xhat).mean(1, keepdim=True)
+        dw = (gf * xhat).sum(others) if ctx.needs_input_grad[1] else None
+        db = gf.sum(others) if ctx.needs_input_grad[2] else None
+        dxhat = gf.mul_(weight.view(shape))
+        m1 = dxhat.mean(dim, keepdim=True)
+        m2 = (dxhat * xhat).mean(dim, keepdim=True)
         dx = dxhat.sub_(m1).sub_(xhat.mul_(m2)).mul_(rstd).to(x.dtype)
-        return dx, dw, db, None
+        return dx, dw, db, None, None
+
+
+# ---------------------------------------------------------------------------
+# The conv lowerings (``Wav2Vec2Config.conv_impl``). Each takes x (B, T, C),
+# the nn.Conv1d weight (O, C, k) and the stride, and gives (B, T_out, O) of a
+# VALID strided conv. The products are plain torch.matmul/bmm, as the
+# reference's are plain XLA dots.
+# ---------------------------------------------------------------------------
+
+
+def _rows_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` for ``a`` (B, M, K) with rows of unit stride at any row
+    and batch strides (a strided slice of time), ``w`` (K, N): one batched
+    product over ``w`` broadcast. torch.matmul would fold the batch into the
+    rows, which copies ``a`` unless it is contiguous."""
+    return torch.bmm(a, w.expand(a.shape[0], *w.shape))
+
+
+def _im2col(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """Patches ``(B, T, C) → (B, T_out, C·kernel)`` by ``Tensor.unfold``:
+    column ``c·kernel + r`` holds ``x[:, t·stride + r, c]``. That (C, k) order
+    is the flattened nn.Conv1d weight's, ``w.reshape(O, C·k)`` (the
+    reference's patches are in (k, C) order against its (k, C, O) kernel).
+    The backward of unfold is one scatter-add into the input's gradient."""
+    B, _, C = x.shape
+    return x.unfold(1, kernel, stride).reshape(B, -1, C * kernel)
+
+
+def _im2col_conv(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """im2col: the patches and one product, accumulated in float32 by the
+    matmul and rounded once to the compute dtype."""
+    O, C, k = w.shape
+    return torch.matmul(_im2col(x, k, stride), w.reshape(O, C * k).t())
+
+
+def _pairdot_blocks(w: torch.Tensor, stride: int) -> torch.Tensor:
+    """The (O, C, k) weight as pairdot's ``(nb, s·C, O)`` phase blocks,
+    ``nb = ceil(k/s)``: row ``r·C + c`` of block ``j`` is tap ``j·s + r`` of
+    input channel ``c``; the last block's missing taps are zero rows."""
+    O, C, k = w.shape
+    nb = -(-k // stride)
+    wb = F.pad(w, (0, nb * stride - k)).view(O, C, nb, stride)
+    return wb.permute(2, 3, 1, 0).reshape(nb, stride * C, O)
+
+
+def _pairdot_conv(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """pairdot, float32 ``(B, L, O)``: with ``z = x.reshape(B, T/s, s·C)``
+    the conv is ``y[t] = Σ_j z[t + j] @ Wb[j]``, ``nb`` products over
+    contiguous time. x is zero-padded when the phase grid is longer than T
+    and sliced when it is shorter (those samples meet only zero rows or no
+    output). Each product is rounded to the compute dtype before the float32
+    sum (the reference keeps its products in float32)."""
+    B, T, C = x.shape
+    k = w.shape[2]
+    s = stride
+    L = (T - k) // s + 1
+    nb = -(-k // s)
+    need = (L - 1 + nb) * s
+    if need > T:
+        x = F.pad(x, (0, 0, 0, need - T))
+    z = x[:, :need].reshape(B, L - 1 + nb, s * C)
+    wb = _pairdot_blocks(w, s)
+    y = _rows_dot(z[:, :L], wb[0]).float()
+    for j in range(1, nb):
+        y += _rows_dot(z[:, j:j + L], wb[j])
+    return y
+
+
+def _tapdot_conv(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """tapdot, float32 ``(B, L, O)``: ``Σ_r x[:, r : r+span : s] @ W_r``, one
+    product a tap over a strided view of x with the whole C_in contracted
+    and no patch buffer. Each product is rounded to the compute dtype before
+    the float32 sum. The backward of each strided slice writes a
+    zero-filled gradient of x's full size."""
+    T = x.shape[1]
+    k = w.shape[2]
+    L = (T - k) // stride + 1
+    span = (L - 1) * stride + 1
+    taps = w.permute(2, 1, 0).contiguous()  # (k, C, O)
+    y = _rows_dot(x[:, :span:stride], taps[0]).float()
+    for r in range(1, k):
+        y += _rows_dot(x[:, r:r + span:stride], taps[r])
+    return y
+
+
+class _HybridConvFn(torch.autograd.Function):
+    """hybrid: ``F.conv1d`` forward and pairdot's transpose as the backward
+    (reference: ``_hybrid_conv``). x (B, T, C), w (O, C, k) → (B, L, O). The
+    backward's input gradient is ``nb`` products over the (B, lz, s·C)
+    phase grid, overlap-added and un-reshaped into time; its weight
+    gradient, when asked for, ``nb`` contractions over B·L. It keeps only
+    ``(x, w)``, as the reference's residuals."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        # F.conv1d of the (B, C, T) view: torch copies it into cuDNN's
+        # layout, and .contiguous() copies the output back to (B, T, C)
+        return F.conv1d(x.transpose(1, 2), w, None, stride).transpose(1, 2).contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        s = ctx.stride
+        B, T, C = x.shape
+        O, _, k = w.shape
+        L = dy.shape[1]
+        nb = -(-k // s)
+        lz = L - 1 + nb
+        need = lz * s
+        wb = _pairdot_blocks(w, s)  # (nb, s·C, O)
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dz[u] = Σ_j dy[u − j] @ wb[j]ᵀ, summed in float32; each product
+            # is rounded to the compute dtype first (the reference's are
+            # float32)
+            dz = dy.new_zeros((B, lz, s * C), dtype=torch.float32)
+            for j in range(nb):
+                dz[:, j:j + L] += torch.matmul(dy, wb[j].t())
+            dz = dz.view(B, need, C)
+            # the forward's geometry: samples past the grid never enter the
+            # conv (zero gradient), grid rows past T are dropped
+            dx = (dz[:, :T] if need >= T else F.pad(dz, (0, 0, 0, T - need))).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            z = x if need <= T else F.pad(x, (0, 0, 0, need - T))
+            z = z[:, :need].reshape(B, lz, s * C)
+            rows = dy.reshape(B * L, O)
+            dwb = torch.stack([z[:, j:j + L].reshape(B * L, s * C).t() @ rows
+                               for j in range(nb)])
+            dw = dwb.view(nb * s, C, O)[:k].permute(2, 1, 0).contiguous()
+        return dx, dw, None
+
+
+def feature_conv(impl: str, x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """One feature-extractor conv, without its bias, in ``x``'s dtype, under
+    the lowering ``impl``: ``conv`` maps (B, C_in, T) to (B, C_out, T_out),
+    every other lowering (B, T, C_in) to (B, T_out, C_out)."""
+    if impl == "conv":
+        return F.conv1d(x, w, None, stride)
+    if impl == "hybrid":
+        return _HybridConvFn.apply(x, w, stride)
+    if impl == "pairdot":
+        return _pairdot_conv(x, w, stride).to(x.dtype)
+    if impl == "tapdot" and x.shape[-1] > 1:
+        return _tapdot_conv(x, w, stride).to(x.dtype)
+    # im2col, and tapdot on layer 0, where one input channel leaves no
+    # contraction to split (the reference falls through the same way)
+    return _im2col_conv(x, w, stride)
 
 
 class ConvLayer(nn.Module):
@@ -295,17 +478,30 @@ class ConvLayer(nn.Module):
         else:
             self.layer_norm = None
         self.gelu = cfg.fe_gelu
+        self.impl = cfg.conv_impl
+        # the channel axis: (B, C, T) under "conv", (B, T, C) otherwise
+        self.channel_dim = 1 if cfg.conv_impl == "conv" else 2
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, C_in, T)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
-        x = F.conv1d(x, self.conv.weight.to(dt), None, self.stride)
+        c = self.channel_dim
+        x = feature_conv(self.impl, x, self.conv.weight.to(dt), self.stride)
         if self.conv.bias is not None:  # added in the compute dtype after the conv
-            x = x + self.conv.bias.to(dt)[:, None]
+            bias = self.conv.bias.to(dt)
+            x = x + (bias[:, None] if c == 1 else bias)
         n = self.layer_norm
         if isinstance(n, nn.LayerNorm):
-            x = _ChannelLayerNorm.apply(x, n.weight, n.bias, n.eps)
-        elif n is not None:
+            x = _FeNorm.apply(x, n.weight, n.bias, n.eps, c)
+        elif n is not None and c == 1:
             x = F.group_norm(x.float(), n.num_groups, n.weight, n.bias, n.eps).to(dt)
+        elif n is not None:
+            # torch's GroupNorm on the (B, C, T) view: the float32 cast
+            # writes that layout, one more copy writes the result back in
+            # (B, T, C); eager passes over time (as _FeNorm's) would cost
+            # several times that at layer 0's size
+            xt = x.transpose(1, 2).to(torch.float32, memory_format=torch.contiguous_format)
+            x = F.group_norm(xt, n.num_groups, n.weight, n.bias, n.eps).to(dt)
+            x = x.transpose(1, 2).contiguous()
         # "auto": tanh GELU under bf16, where its error is below the cast's
         # own; exact erf under f32
         tanh = self.gelu == "tanh" or (self.gelu == "auto" and dt == torch.bfloat16)
@@ -313,18 +509,25 @@ class ConvLayer(nn.Module):
 
 
 class FeatureExtractor(nn.Module):
+    """The conv stack: the waveform (B, T) in the compute dtype → (B,
+    frames, C). ``conv`` runs it on (B, C, T), cuDNN's layout, and hands the
+    transposed view on; the other lowerings run it on (B, T, C), where a
+    phase reshape of time is a view and no conv needs a transpose (base's
+    layer-0 GroupNorm copies its layer once each way)."""
+
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
         self.conv_layers = nn.ModuleList(ConvLayer(cfg, i) for i in range(len(cfg.conv_dim)))
         self.remat = cfg.remat_feature_extractor
         self.save_layers = cfg.remat_fe_save_layers
+        self.channels_last = cfg.conv_impl != "conv"
 
     def _layers(self, x: torch.Tensor, start: int) -> torch.Tensor:
         for layer in self.conv_layers[start:]:
             x = layer(x)
         return x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _stack(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.remat and torch.is_grad_enabled()):
             return self._layers(x, 0)
         # the first k layers one checkpoint each, keeping their inputs (the
@@ -333,6 +536,11 @@ class FeatureExtractor(nn.Module):
         for layer in self.conv_layers[:k]:
             x = _checkpoint(layer, x)
         return _checkpoint(self._layers, x, k) if k < len(self.conv_layers) else x
+
+    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        if self.channels_last:
+            return self._stack(audio[:, :, None])
+        return self._stack(audio[:, None, :]).transpose(1, 2)
 
 
 class FeatureProjection(nn.Module):
@@ -383,6 +591,17 @@ class SelfAttention(nn.Module):
         self.k_proj = nn.Linear(H, local)
         self.v_proj = nn.Linear(H, local)
         self.out_proj = nn.Linear(local, H)
+        self.fused = cfg.fused_qkv
+
+    def _fused_qkv(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """q, k and v from one (3·local, H) product (reference: the
+        ``fused_qkv`` branch): this rank's q, k and v slices concatenated,
+        the q scale folded into q's weight and bias in float32, then cast."""
+        dt = x.dtype
+        q, k, v = self.q_proj, self.k_proj, self.v_proj
+        w = torch.cat([q.weight.float() * self.scale, k.weight.float(), v.weight.float()])
+        b = torch.cat([q.bias.float() * self.scale, k.bias.float(), v.bias.float()])
+        return F.linear(x, w.to(dt), b.to(dt)).split(self.heads * self.head_dim, dim=-1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, H)
         B, T, _ = x.shape
@@ -390,9 +609,12 @@ class SelfAttention(nn.Module):
         if self.axis is not None:
             x = tp.copy_to_model(x, self.axis)
         split = lambda t: t.view(B, T, self.heads, self.head_dim)
-        q = _linear(x, self.q_proj, dt) * self.scale
-        k = _linear(x, self.k_proj, dt)
-        v = _linear(x, self.v_proj, dt)
+        if self.fused:
+            q, k, v = self._fused_qkv(x)
+        else:
+            q = _linear(x, self.q_proj, dt) * self.scale
+            k = _linear(x, self.k_proj, dt)
+            v = _linear(x, self.v_proj, dt)
         ctx = attention(split(q), split(k), split(v)).reshape(B, T, self.heads * self.head_dim)
         if self.axis is not None:
             return tp.row_parallel(ctx, self.out_proj, self.axis, dt)
@@ -505,8 +727,7 @@ class Wav2Vec2Model(nn.Module):
         self.encoder = Encoder(cfg, axis)
 
     def forward(self, audio: torch.Tensor) -> torch.Tensor:  # (B, T) float32
-        x = self.feature_extractor(audio[:, None, :].to(self.cfg.dtype))
-        x = self.feature_projection(x.transpose(1, 2))
+        x = self.feature_projection(self.feature_extractor(audio.to(self.cfg.dtype)))
         return self.encoder(x)
 
 

@@ -69,10 +69,7 @@ def test_same_argv_same_config(argv):
 @pytest.mark.parametrize("argv", [
     ["--attention_impl", "xla"],
     ["--no_pallas_fm"],
-    ["--conv_impl", "hybrid"],
     ["--device_probe_timeout", "60"],
-    ["--conv_impl", "im2col"],
-    ["--conv_impl", "pairdot"],
     ["--platform", "tpu"],
 ])
 def test_tpu_only_flags_are_refused(argv, capsys):
@@ -80,6 +77,17 @@ def test_tpu_only_flags_are_refused(argv, capsys):
         tparser.parse_args(argv)
     assert e.value.code == 2
     assert argv[0] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("entry", ["run_attack", "sweep"])
+@pytest.mark.parametrize("impl", ["hybrid", "pairdot", "im2col", "tapdot"])
+def test_conv_impl_flags_run(entry, impl):
+    """Every ``--conv_impl`` lowering parses on both entry points (they were
+    refused before the lowerings were ported), and ``load_model`` builds the
+    model with it."""
+    parse = tparser.parse_args if entry == "run_attack" else tsweep.parse_args
+    args = parse(["--conv_impl", impl, "--model", "wav2vec2-tiny", "--platform", "cpu"])
+    assert trun.load_model(args, torch.device("cpu")).cfg.conv_impl == impl
 
 
 REMAT_FLAGS = [(["--remat"], True, "save_cheap"),

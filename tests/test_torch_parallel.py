@@ -190,7 +190,10 @@ def _torch_inputs(params, arrays) -> dict:
     inp = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()
            if k != "sweep_opt"}
     inp["sweep_opt"] = [torch.from_numpy(a.copy()) for a in arrays["sweep_opt"]]
-    inp["state_dict"] = convert.params_from_jax(jax.tree.map(np.asarray, params), cfg)
+    params = jax.tree.map(np.asarray, params)
+    inp["state_dict"] = convert.params_from_jax(params, cfg)
+    # each model rank's slice on a 2-way model axis, for fused_qkv
+    inp["tp_shards"] = [convert.sharded_params_from_jax(params, cfg, r, 2) for r in range(2)]
     return inp
 
 
@@ -204,6 +207,11 @@ def _jax_reference(params, japply, arrays) -> dict:
     loss, ids, grad = jax.jit(lambda *a: jstep._grad_and_metrics(*a, japply, params, cfg0))(
         p0, *batch)
     out = {"grad": np.asarray(grad), "grad_loss": float(loss), "grad_ids": np.asarray(ids)}
+    fused = jw2v.Wav2Vec2ForCTC(jw2v.get_config("wav2vec2-tiny", fused_qkv=True))
+    loss, ids, grad = jax.jit(lambda *a: jstep._grad_and_metrics(
+        *a, lambda prm, x: fused.apply({"params": prm}, x), params, cfg0))(p0, *batch)
+    out["fused_qkv"] = {"grad": np.asarray(grad), "grad_loss": float(loss),
+                        "grad_ids": np.asarray(ids)}
     mesh = _jax_mesh()
     psh = jtp.param_shardings(params, mesh)
     prm = jtp.shard_params(params, mesh, shardings=psh)
@@ -313,6 +321,23 @@ def test_tp_full_remat_equals_remat_off(results, layout):
         loss, ids, grad = r["remat_full"]
         assert torch.equal(loss, r["grad_loss"]) and torch.equal(ids, r["grad_ids"])
         assert torch.equal(grad, r["grad"])
+
+
+@pytest.mark.parametrize("layout", ["tp2", "dp2tp2"])
+def test_tp_fused_qkv_matches_jax(results, layout):
+    """``fused_qkv`` under a 2-way model axis: each rank concatenates its own
+    q, k and v slices (``convert.sharded_params_from_jax``) into one product;
+    the loss, ids and ∂loss/∂p against JAX's ``fused_qkv=True`` model, at
+    ``test_sharded_grad_matches_jax``'s tolerances."""
+    got, want = results
+    w = want["fused_qkv"]
+    for r in _layout_ranks(got, layout):
+        loss, ids, g = r["fused_qkv"]
+        np.testing.assert_allclose(float(loss), w["grad_loss"], rtol=1e-4)
+        np.testing.assert_array_equal(ids.numpy(), w["grad_ids"])
+        g, jg = g.numpy(), w["grad"]
+        assert np.mean(np.sign(g) == np.sign(jg)) >= 0.99
+        np.testing.assert_allclose(g, jg, atol=1e-3 * np.abs(jg).max())
 
 
 @pytest.mark.parametrize("layout", LAYOUT_NAMES)

@@ -255,7 +255,7 @@ def test_feature_extractor_layer_norm_matches_layer_norm(dtype, tol):
         (y.float() * ct).sum().backward()
         return y.detach().float(), [t.grad.float() for t in leaves]
 
-    got, got_g = grads(lambda x_, w_, b_: tw2v._ChannelLayerNorm.apply(x_, w_, b_, 1e-5),
+    got, got_g = grads(lambda x_, w_, b_: tw2v._FeNorm.apply(x_, w_, b_, 1e-5, 1),
                        x.to(dtype))
     want, want_g = grads(lambda x_, w_, b_: torch.nn.functional.layer_norm(
         x_.float().transpose(1, 2), (24,), w_, b_, 1e-5).transpose(1, 2), x.to(dtype))

@@ -6,7 +6,8 @@ gloo process group on the CPU, and waits for them with a timeout. Modes:
 
   * ``steps``: the sharded train, eval and sweep steps of the tiny model on
     the inputs the parent wrote to ``workdir/inputs.pt``, for the layouts of
-    :data:`LAYOUTS` (with a model axis also ∂loss/∂p under full remat);
+    :data:`LAYOUTS` (with a model axis also ∂loss/∂p under full remat, and
+    under ``fused_qkv`` from the parent's 2-way shards of the weights);
     each rank writes its results to ``workdir/rank<r>.pt``;
   * ``cli``: ``paa_tpu_torch.cli.<module>.main(argv)`` with the argv in
     ``workdir/argv.json``; ranks other than 0 record every file they open for
@@ -109,6 +110,14 @@ def _steps(workdir: str) -> dict:
         if tp_size > 1:  # the same under full remat: the recompute replays the collectives
             remat = tp.shard_model(full_model(remat=True, remat_policy="full"), mesh)
             out[layout]["remat_full"] = step._grad_fn(remat, cfg0, mesh)(p0, *batch)
+            # fused_qkv on this rank's slice of the JAX weights, converted by
+            # the parent (convert.sharded_params_from_jax)
+            axis = tp.model_axis(mesh)
+            fused = wav2vec2.Wav2Vec2ForCTC(
+                wav2vec2.get_config("wav2vec2-tiny", fused_qkv=True), model_axis=axis)
+            fused.load_state_dict(inp["tp_shards"][axis.rank])
+            fused = fused.requires_grad_(False).eval()
+            out[layout]["fused_qkv"] = step._grad_fn(fused, cfg0, mesh)(p0, *batch)
         for name in cases:
             kw, steps, cp = CASES[name]
             cfg = AttackConfig(lr=LR, **kw)

@@ -21,7 +21,8 @@ forward operation that made its autograd node (linked by sequence number),
 and split by kind (GELU, copies and casts, LayerNorm, reductions, other
 elementwise, matmul, conv, attention). ``--remat POLICY`` (and
 ``--remat_ffn``, ``--remat_fe N`` for feature-extractor remat saving N
-layers) profiles the attack step under that remat setting. An attack
+layers) profiles the attack step under that remat setting; ``--conv_impl``
+and ``--fused_qkv`` under that model option (``Wav2Vec2Config``). An attack
 step also reports its peak before the feature extractor's first conv
 layer's backward and from it on. ``--trace``
 keeps the Chrome trace at PATH. Needs one CUDA device; it never runs on
@@ -89,7 +90,7 @@ def group_of(name: str) -> str:
 SCOPES = (
     (wav2vec2.Wav2Vec2ForCTC, "forward", "model: normalize, lm_head"),
     (wav2vec2.ConvLayer, "forward", "feature extractor: conv, bias, GELU"),
-    (wav2vec2._ChannelLayerNorm, "apply", "feature extractor: LayerNorm"),
+    (wav2vec2._FeNorm, "apply", "feature extractor: LayerNorm"),
     (wav2vec2.FeatureProjection, "forward", "feature projection"),
     (wav2vec2.PositionalConvEmbedding, "forward", "positional conv"),
     (wav2vec2.EncoderLayer, "forward", "encoder layer: residual adds"),
@@ -370,8 +371,16 @@ def main() -> int:
     ap.add_argument("--remat_ffn", action="store_true")
     ap.add_argument("--remat_fe", type=int, default=None,
                     help="feature-extractor remat, saving this many conv layers' outputs")
+    ap.add_argument("--conv_impl", default=None,
+                    choices=["conv", "hybrid", "pairdot", "im2col", "tapdot"],
+                    help="the feature extractor's conv lowering (default: the config's, conv)")
+    ap.add_argument("--fused_qkv", action="store_true", help="q, k and v in one product")
     args = ap.parse_args()
     overrides = {}
+    if args.conv_impl:
+        overrides["conv_impl"] = args.conv_impl
+    if args.fused_qkv:
+        overrides["fused_qkv"] = True
     if args.remat:
         overrides.update(remat=True, remat_policy=args.remat)
     if args.remat_ffn:
