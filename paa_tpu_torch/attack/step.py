@@ -44,6 +44,7 @@ from paa_tpu_torch.data import pipeline
 from paa_tpu_torch.ops import ctc, projections
 from paa_tpu_torch.ops.psycho import PsychoTables
 from paa_tpu_torch.parallel import mesh as mesh_lib
+from paa_tpu_torch.spans import span
 
 
 class StepMetrics(NamedTuple):
@@ -57,7 +58,8 @@ def _microbatch(model, cfg: AttackConfig, p, audio, labels, label_paddings, weig
     if cfg.clamp_audio:
         perturbed = torch.clamp(perturbed, -1.0, 1.0)
     logits = model(perturbed)
-    per_example = ctc.ctc_loss(logits, labels, label_paddings, reduction="none")
+    with span("paa.ctc"):
+        per_example = ctc.ctc_loss(logits, labels, label_paddings, reduction="none")
     loss = torch.sum(per_example * weights)
     (grad,) = torch.autograd.grad(loss, p)
     return loss.detach(), ctc.greedy_ids(logits.detach()), grad
@@ -123,7 +125,8 @@ def _eval_fn(model, mesh) -> Callable:
     @torch.no_grad()
     def metrics(p, audio, labels, label_paddings, weights):
         logits = model(audio + p)
-        per_example = ctc.ctc_loss(logits, labels, label_paddings, reduction="none")
+        with span("paa.ctc"):
+            per_example = ctc.ctc_loss(logits, labels, label_paddings, reduction="none")
         return StepMetrics(ctc_loss=torch.sum(per_example * weights),
                            greedy_ids=ctc.greedy_ids(logits))
 
@@ -144,7 +147,7 @@ def _cell_mask_update(cfg, tables, audio, p, grad, opt_state, cparams, active: b
     a traced 0/1 mask; here the host knows it)."""
     if not active:
         return p, opt_state
-    with torch.no_grad():
+    with torch.no_grad(), span("paa.update"):
         new_p, new_opt_state = optimizers.apply_update(cfg, p, grad, opt_state, lr)
         new_p = projections.perturbation_constraint(new_p, audio, cfg, cparams, tables)
     return new_p, new_opt_state

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from paa_tpu_torch.ops import text as text_ops
+from paa_tpu_torch.spans import span
 
 logger = logging.getLogger("paa_tpu")
 
@@ -96,9 +97,10 @@ def _put(a, device: torch.device) -> torch.Tensor:
 def to_device(batch: Batch, device: torch.device) -> Batch:
     """The batch's arrays as tensors on ``device`` (see :func:`_put`); the
     weights stay on the host too, as ``host_weights``."""
-    return Batch(_put(batch.audio, device), _put(batch.labels, device),
-                 _put(batch.label_paddings, device), _put(batch.weights, device),
-                 batch.indices, host_weights=np.asarray(batch.weights))
+    with span("paa.feed"):
+        return Batch(_put(batch.audio, device), _put(batch.labels, device),
+                     _put(batch.label_paddings, device), _put(batch.weights, device),
+                     batch.indices, host_weights=np.asarray(batch.weights))
 
 
 def shard_rows(x, n: int, r: int):
@@ -335,8 +337,9 @@ class DeviceCorpus:
     def batches(self, batch_size: int, shuffle_rng: np.random.Generator | None = None,
                 drop_remainder: bool = False) -> Iterator[Batch]:
         for rows in _batch_rows(len(self.split), batch_size, shuffle_rng, drop_remainder):
-            audio, labels, pads, weights = _gather_rows(
-                self.audio, self.labels, self.label_paddings, _put(rows, self.device))
+            with span("paa.feed"):
+                audio, labels, pads, weights = _gather_rows(
+                    self.audio, self.labels, self.label_paddings, _put(rows, self.device))
             yield Batch(audio, labels, pads, weights, rows, (rows >= 0).astype(np.float32))
 
 
@@ -409,11 +412,14 @@ class CachedCorpus:
 
         def emit(staged) -> Batch:
             miss, index, rows = staged
-            audio, labels, pads, weights = self._combine(miss, index)
+            with span("paa.feed"):
+                audio, labels, pads, weights = self._combine(miss, index)
             return Batch(audio, labels, pads, weights, rows, (rows >= 0).astype(np.float32))
 
+        # two feed spans a batch: its staging, a batch ahead, and its assembly
         for rows in _batch_rows(len(self.split), batch_size, shuffle_rng, drop_remainder):
-            queue.append(self._stage_miss(rows))
+            with span("paa.feed"):
+                queue.append(self._stage_miss(rows))
             if len(queue) >= 2:
                 yield emit(queue.popleft())
         while queue:

@@ -53,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 
 from paa_tpu_torch.ops.kernels.attention import attention
 from paa_tpu_torch.parallel import tp
+from paa_tpu_torch.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -538,9 +539,10 @@ class FeatureExtractor(nn.Module):
         return _checkpoint(self._layers, x, k) if k < len(self.conv_layers) else x
 
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
-        if self.channels_last:
-            return self._stack(audio[:, :, None])
-        return self._stack(audio[:, None, :]).transpose(1, 2)
+        with span("paa.fe"):
+            if self.channels_last:
+                return self._stack(audio[:, :, None])
+            return self._stack(audio[:, None, :]).transpose(1, 2)
 
 
 class FeatureProjection(nn.Module):
@@ -564,13 +566,14 @@ class PositionalConvEmbedding(nn.Module):
         self.trim = 1 if K % 2 == 0 else 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, H)
-        dt = x.dtype
-        c = self.conv
-        y = F.conv1d(x.transpose(1, 2), c.weight.to(dt), c.bias.to(dt), padding=c.padding,
-                     groups=c.groups)
-        if self.trim:
-            y = y[:, :, : -self.trim]
-        return F.gelu(y.transpose(1, 2))
+        with span("paa.pos_conv"):
+            dt = x.dtype
+            c = self.conv
+            y = F.conv1d(x.transpose(1, 2), c.weight.to(dt), c.bias.to(dt), padding=c.padding,
+                         groups=c.groups)
+            if self.trim:
+                y = y[:, :, : -self.trim]
+            return F.gelu(y.transpose(1, 2))
 
 
 class SelfAttention(nn.Module):
@@ -615,7 +618,9 @@ class SelfAttention(nn.Module):
             q = _linear(x, self.q_proj, dt) * self.scale
             k = _linear(x, self.k_proj, dt)
             v = _linear(x, self.v_proj, dt)
-        ctx = attention(split(q), split(k), split(v)).reshape(B, T, self.heads * self.head_dim)
+        with span("paa.attention"):
+            ctx = attention(split(q), split(k), split(v))
+        ctx = ctx.reshape(B, T, self.heads * self.head_dim)
         if self.axis is not None:
             return tp.row_parallel(ctx, self.out_proj, self.axis, dt)
         return _linear(ctx, self.out_proj, dt)
@@ -710,12 +715,13 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(EncoderLayer(cfg, axis) for _ in range(cfg.num_hidden_layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.pos_conv_embed(x)
-        if not self.pre_ln:
-            x = _layer_norm(x, self.layer_norm)
-        for layer in self.layers:
-            x = layer(x)
-        return _layer_norm(x, self.layer_norm) if self.pre_ln else x
+        with span("paa.encoder"):
+            x = x + self.pos_conv_embed(x)
+            if not self.pre_ln:
+                x = _layer_norm(x, self.layer_norm)
+            for layer in self.layers:
+                x = layer(x)
+            return _layer_norm(x, self.layer_norm) if self.pre_ln else x
 
 
 class Wav2Vec2Model(nn.Module):

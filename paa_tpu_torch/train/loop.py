@@ -47,6 +47,7 @@ from paa_tpu_torch.data import pipeline as pipeline_lib
 from paa_tpu_torch.models import wav2vec2
 from paa_tpu_torch.ops import projections, psycho
 from paa_tpu_torch.parallel import mesh as mesh_lib, tp as tp_lib
+from paa_tpu_torch.spans import span
 from paa_tpu_torch.train import checkpoint
 
 logger = logging.getLogger("paa_tpu")
@@ -112,13 +113,16 @@ def _scores(pending: list, texts: list[str], empty: float,
     batch, WER is against ``texts``, ``empty`` is the score of no batch, and
     ``preds`` (if given) collects the lowercased greedy decodes."""
     ctc_scores, wer_scores = [], []
-    for m, w, indices in pending:
-        ctc_scores.append(float(m.ctc_loss))
-        batch_wer, batch_preds = _batch_wer(m.greedy_ids.cpu().numpy()[w],
-                                            [texts[i] for i in indices[w]])
-        wer_scores.append(batch_wer)
-        if preds is not None:
-            preds.extend(batch_preds)
+    with span("paa.score"):
+        for m, w, indices in pending:
+            with span("paa.score.wait"):
+                ctc_scores.append(float(m.ctc_loss))
+            with span("paa.score.wait"):
+                ids = m.greedy_ids.cpu()
+            batch_wer, batch_preds = _batch_wer(ids.numpy()[w], [texts[i] for i in indices[w]])
+            wer_scores.append(batch_wer)
+            if preds is not None:
+                preds.extend(batch_preds)
     avg = lambda v: sum(v) / len(v) if v else empty
     return scoring.Scores(avg(ctc_scores), avg(wer_scores))
 

@@ -11,15 +11,17 @@ the first batch of 32 of its synthetic corpus (512 clips); it also times
 each convolution's weight gradient and input gradient alone (CUDA events,
 10 calls of ``aten.convolution_backward``) at the shapes the step gives it.
 Each runs one warm-up step, times ``--steps`` (2) on the host clock, then runs
-one step under ``torch.profiler``. It prints one JSON line: the step time,
-the device's busy share in the profiled step (the union of kernel
-intervals over the step's span in the trace), kernel time by group, the
-top kernels by total device time, and the kernel time by model scope and
-kind (``by_scope_ms``): each kernel is charged to the innermost module
-scope around its launch, a kernel of the backward to the scope of the
-forward operation that made its autograd node (linked by sequence number),
-and split by kind (GELU, copies and casts, LayerNorm, reductions, other
-elementwise, matmul, conv, attention). ``--remat POLICY`` (and
+one step under ``torch.profiler``, in ``portbench``'s window scope and ending
+in a synchronize. It prints one JSON line: the step time, the profiled
+step's window and the device's busy time and share in it
+(``portbench/trace.py:summarize``), kernel time by group, the top kernels by
+total device time, and the device time by model scope and kind
+(``by_scope_ms``, ``portbench/spans.py:charge``'s rule): each device
+operation is charged to the innermost module scope around its launch, one
+of the backward to the scope of the forward operation that made its
+autograd node (linked by sequence number), each instant once, and split by
+kind (GELU, copies and casts, LayerNorm, reductions, other elementwise,
+matmul, conv, attention). ``--remat POLICY`` (and
 ``--remat_ffn``, ``--remat_fe N`` for feature-extractor remat saving N
 layers) profiles the attack step under that remat setting; ``--conv_impl``
 and ``--fused_qkv`` under that model option (``Wav2Vec2Config``). An attack
@@ -53,6 +55,7 @@ from paa_tpu_torch.config import AttackConfig, ConstraintParams  # noqa: E402
 from paa_tpu_torch.models import wav2vec2  # noqa: E402
 from paa_tpu_torch.ops import psycho, text  # noqa: E402
 from paa_tpu_torch.train import pretrain  # noqa: E402
+from portbench import spans, trace  # noqa: E402
 
 PRESETS = {  # name: (model, batch, samples, accum_steps)
     "base": ("wav2vec2-base", 64, 160_000, 1),
@@ -105,7 +108,7 @@ KINDS = (
                                                           "cudnn", "implicit")),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet")), ("GELU", ("gelu",)),
     ("LayerNorm kernels", ("layer_norm", "layernorm", "gammabeta")),
-    ("copies and casts", ("copy",)), ("reductions", ("reduce",)),
+    ("copies and casts", ("copy", "memcpy", "memset")), ("reductions", ("reduce",)),
 )
 
 
@@ -146,91 +149,17 @@ def scoped_model():
                 delattr(owner, attr)
 
 
-def by_scope(events: list, labels: set) -> dict:
-    """Kernel ms by (scope, kind). A kernel's launch is found by its
-    correlation id; the CPU events around the launch on its thread, from the
-    innermost out, give the scope: one of ``labels``, or an autograd node
-    (``evaluate_function``) whose sequence number names the forward
-    operation that made it, whose own innermost scope is taken."""
-    cpu = collections.defaultdict(list)
-    launches = {}
-    for e in events:
-        if e.get("ph") != "X":
-            continue
-        if e.get("cat") in ("cpu_op", "user_annotation"):
-            cpu[e["tid"]].append(e)
-        elif e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
-            launches[e["args"]["correlation"]] = e
-    chains = {}  # correlation id -> enclosing CPU events, outermost first
-    for tid, evs in cpu.items():
-        evs.sort(key=lambda e: (e["ts"], -e["dur"]))
-        points = sorted((e for e in launches.values() if e["tid"] == tid), key=lambda e: e["ts"])
-        stack, i = [], 0
-        for pt in points:
-            while i < len(evs) and evs[i]["ts"] <= pt["ts"]:
-                while stack and stack[-1]["ts"] + stack[-1]["dur"] < evs[i]["ts"]:
-                    stack.pop()
-                stack.append(evs[i])
-                i += 1
-            while stack and stack[-1]["ts"] + stack[-1]["dur"] < pt["ts"]:
-                stack.pop()
-            chains[pt["args"]["correlation"]] = list(stack)
-    # sequence number -> the innermost scope of the forward operation that
-    # made that autograd node. An operation records the number the next node
-    # will take, so the last one to record it (by start time) made the node.
-    # Only the forward's threads (those that enter a scope) count: the
-    # backward's threads number their own operations from another counter.
-    fwd_scope = {}
-    for evs in cpu.values():
-        if not any(e["name"] in labels for e in evs):
-            continue
-        stack = []
-        for e in evs:
-            while stack and stack[-1]["ts"] + stack[-1]["dur"] < e["ts"]:
-                stack.pop()
-            seq = e.get("args", {}).get("Sequence number")
-            if (seq is not None and "evaluate_function" not in e["name"]
-                    and not any("evaluate_function" in s["name"] for s in stack)):
-                fwd_scope[seq] = next((s["name"] for s in reversed(stack) if s["name"] in labels),
-                                      OUTSIDE)
-            stack.append(e)
-
-    def scope(chain) -> str:
-        for e in reversed(chain):
-            if e["name"] in labels:
-                return e["name"]
-            if "evaluate_function" in e["name"]:
-                seq = e.get("args", {}).get("Sequence number")
-                return fwd_scope.get(seq, OUTSIDE)
-        return OUTSIDE
-
+def by_scope_ms(events: list) -> dict:
+    """Device ms by (scope, kind) over the trace's window: ``portbench``'s
+    charge rule (``portbench/spans.py:charge``) with the labels of
+    :data:`SCOPES`, so that each instant of device time is charged once."""
+    labels = {label for _, _, label in SCOPES}
+    w = spans.window(events)
     out = collections.defaultdict(lambda: collections.defaultdict(float))
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") == "kernel":
-            chain = chains.get(e.get("args", {}).get("correlation"), [])
-            out[scope(chain)][kind_of(e["name"])] += e["dur"] / 1e3
+    for label, e, a, b in spans.charge(events, labels.__contains__, w["ts"], w["ts"] + w["dur"]):
+        out[OUTSIDE if label == trace.OUTSIDE else label][kind_of(e["name"])] += (b - a) / 1e3
     return {k: dict(sorted(v.items(), key=lambda kv: -kv[1]))
             for k, v in sorted(out.items(), key=lambda kv: -sum(kv[1].values()))}
-
-
-def busy_share(trace_path: str) -> tuple[float, float, float]:
-    """(kernel time ms, union of kernel intervals ms, span ms) of the trace."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("ph") == "X" and e.get("cat") == "kernel")
-    total = sum(b - a for a, b in spans)
-    union, cur_a, cur_b = 0.0, None, None
-    for a, b in spans:
-        if cur_b is None or a > cur_b:
-            if cur_b is not None:
-                union += cur_b - cur_a
-            cur_a, cur_b = a, b
-        else:
-            cur_b = max(cur_b, b)
-    if cur_b is not None:
-        union += cur_b - cur_a
-    return total / 1e3, union / 1e3, (spans[-1][1] - spans[0][0]) / 1e3 if spans else 0.0
 
 
 def attack_step(preset: str, dev, overrides: dict):
@@ -406,34 +335,34 @@ def main() -> int:
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with scoped_model(), torch.profiler.profile(activities=acts) as prof:
-        one_step()
-        torch.cuda.synchronize()
+        with torch.profiler.record_function(trace.WINDOW):
+            one_step()
+            torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
-        trace = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(trace)
-        kernel_ms, busy_ms, span_ms = busy_share(trace)
-        by_name = collections.Counter()
-        calls = collections.Counter()
-        with open(trace) as f:
-            events = json.load(f)["traceEvents"]
-        for e in events:
-            if e.get("ph") == "X" and e.get("cat") == "kernel":
-                by_name[e["name"]] += e["dur"] / 1e3
-                calls[e["name"]] += 1
-        scopes = by_scope(events, {label for _, _, label in SCOPES})
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
         if args.trace:
             os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-            shutil.copy(trace, args.trace)
+            shutil.copy(path, args.trace)
+    summary = trace.summarize(events)
+    by_name = collections.Counter()
+    calls = collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name[e["name"]] += e["dur"] / 1e3
+            calls[e["name"]] += 1
     groups = collections.Counter()
     for k, ms in by_name.items():
         groups[group_of(k)] += ms
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
     print(json.dumps({
-        "preset": args.preset, **info, "card": smi, "step_s": step_s, "profiled_span_ms": span_ms,
-        "kernel_ms": kernel_ms, "busy_ms": busy_ms,
-        "busy_share": busy_ms / span_ms if span_ms else None,
+        "preset": args.preset, **info, "card": smi, "step_s": step_s,
+        "window_ms": summary["window_s"] * 1e3, "busy_ms": summary["busy_s"] * 1e3,
+        "busy_share": summary["busy_s"] / summary["window_s"],
         "peak_mem_gib": peak / 2**30, "groups_ms": dict(groups.most_common()),
-        "by_scope_ms": scopes,
+        "by_scope_ms": by_scope_ms(events),
         "top_kernels": [{"name": k[:120], "ms": ms, "calls": calls[k]}
                         for k, ms in by_name.most_common(args.top)],
     }), flush=True)
