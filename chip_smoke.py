@@ -28,6 +28,11 @@ line:
                where it sees the device),
                repeat its bits over 10 calls, and reports its device time
                (``device_ms``, a CUDA graph of 100 calls) beside ``ms``.
+               K5 (the positional conv, both directions) at base's batch
+               (64, 499, 768, 16 groups, 128 taps), an lv60 microbatch (32,
+               999, 1024), the tiny anchor's groups and a ragged length,
+               with equal bits on a repeat, one launch a call, and
+               F.conv1d and cuDNN's input gradient as ``library_ms``.
   3. tiny    — the committed tiny checkpoint: one fletcher_munson PGD train
                step and one eval step on the card (through the kernels),
                held against the same steps on the CPU (plain versions, f32).
@@ -175,7 +180,7 @@ from paa_tpu_torch.config import AttackConfig, ConstraintParams
 from paa_tpu_torch.data import pipeline, synthetic
 from paa_tpu_torch.models import checkpoint_io, wav2vec2
 from paa_tpu_torch.ops import dsp, psycho, text
-from paa_tpu_torch.ops.kernels import _lib, attention, fm_norm
+from paa_tpu_torch.ops.kernels import _lib, attention, fm_norm, pos_conv
 from paa_tpu_torch.parallel import mesh as mesh_lib, tp as tp_lib
 from paa_tpu_torch.train import pretrain
 
@@ -194,6 +199,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_ABS_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
 FM_TOL = 1e-5  # float32 sum of positive terms in another order
+POS_CONV_TOL = 2e-2  # K5: bf16 outputs, as ATTN_TOL's
 
 # The H100 SXM's published peaks (dense), for the bounds: bf16 on the tensor
 # cores, float32 outside them, and device memory.
@@ -404,6 +410,64 @@ def check_fm(stft_p: torch.Tensor, tables, label: str, iters=100) -> dict:
     return out
 
 
+def check_pos_conv(B, T, H, Cg, K, dev, iters=10) -> dict:
+    """K5's forward and input gradient against their plain versions (the
+    same sums through F.conv1d in bf16), their bits on a repeat and one
+    launch a call; each direction's ms, its device ms (a CUDA graph of 20
+    calls), the plain version's ms and the library's: F.conv1d as the layer
+    called it before K5, and its input gradient through cuDNN
+    (``conv1d_input``, which takes about half a second at base's shape)."""
+    g = torch.Generator(device=dev).manual_seed(T * 7 + Cg)
+    x, d = (torch.randn((B, T, H), generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    w = (torch.randn((H, Cg, K), generator=g, device=dev) / math.sqrt(Cg * K)).to(torch.bfloat16)
+    bias = (torch.randn(H, generator=g, device=dev) * 0.1).to(torch.bfloat16)
+    fwd = lambda: pos_conv.pos_conv_fwd(x, w, bias)
+    dgrad = lambda: pos_conv.pos_conv_dgrad(d, w)
+    _lib.reset_launches()
+    pre, out_ = fwd()
+    dx = dgrad()
+    launches = [_lib.launches["pos_conv"], _lib.launches["pos_conv_dgrad"]]
+    pre_ref, out_ref = pos_conv.pos_conv_fwd_plain(x, w, bias)
+    dx_ref = pos_conv.pos_conv_dgrad_plain(d, w)
+    torch.cuda.synchronize()
+    again = fwd()
+    bits = (torch.equal(again[0], pre) and torch.equal(again[1], out_)
+            and torch.equal(dgrad(), dx))
+    out = {"phase": "kernels", "kernel": "pos_conv", "B": B, "T": T, "H": H, "groups": H // Cg,
+           "Cg": Cg, "K": K, "dtype": "bfloat16", "tol_rel": POS_CONV_TOL, "bits_repeat": bits,
+           "launches_per_call": launches}
+    fail = [] if bits else ["bits"]
+    if launches != [1, 1]:
+        fail.append("launches")
+    for name, got, want in (("pre", pre, pre_ref), ("out", out_, out_ref), ("dx", dx, dx_ref)):
+        out[f"{name}_max_abs_err"], out[f"{name}_rel_err"] = rel_err(got, want)
+        if not out[f"{name}_rel_err"] <= POS_CONV_TOL:
+            fail.append(name)
+    xt = x.transpose(1, 2)
+    dy = torch.nn.functional.pad(d.transpose(1, 2), (0, 1 - K % 2))
+    library = {"fwd": lambda: torch.nn.functional.conv1d(xt, w, bias, padding=K // 2,
+                                                         groups=H // Cg),
+               "dgrad": lambda: torch.nn.grad.conv1d_input(xt.shape, w, dy, padding=K // 2,
+                                                           groups=H // Cg)}
+    # 2·B·T·H·Cg·K operations each way; the forward reads x and the weight
+    # and writes pre and gelu(pre), the gradient reads dpre and the weight
+    # and writes dx
+    n, wb = B * T * H * 2, H * Cg * K * 2
+    for direction, call, plain, nbytes in (
+            ("fwd", fwd, lambda: pos_conv.pos_conv_fwd_plain(x, w, bias), 3 * n + wb),
+            ("dgrad", dgrad, lambda: pos_conv.pos_conv_dgrad_plain(d, w), 2 * n + wb)):
+        out[f"{direction}_ms"] = time_ms(call, iters)
+        out[f"{direction}_device_ms"] = fm_profile.graph_ms(call, 20)
+        out[f"{direction}_plain_ms"] = time_ms(plain, 2)
+        out[f"{direction}_library_ms"] = time_ms(library[direction], 2)
+        ms, by = bound(2 * B * T * H * Cg * K, nbytes, torch.bfloat16)
+        out[f"{direction}_bound_ms"], out[f"{direction}_bound_by"] = ms, by
+        out[f"{direction}_peak_share"] = ms / out[f"{direction}_device_ms"]
+    out["failed"] = fail
+    emit(out)
+    return out
+
+
 def phase_kernels(dev) -> dict:
     """Every check runs; the phase fails after them if any was out of
     tolerance. Returns the checks at the main path's shapes."""
@@ -436,6 +500,12 @@ def phase_kernels(dev) -> dict:
     # torch.stft's layout (bins innermost in memory), then made contiguous
     spec_main, spec_lv60 = stft(MAIN_T), stft(LV60_T)
     at_main["fm_norm"] = check_fm(spec_main, tables, "main_path")
+    # K5 at base's batch and an lv60 microbatch, and at the tiny anchor's
+    # groups and a ragged length
+    at_main["pos_conv"] = check_pos_conv(MAIN_B, 499, 768, 48, 128, dev)
+    at_main["pos_conv_long"] = check_pos_conv(LV60_B // LV60_ACCUM, 999, 1024, 64, 128, dev)
+    results.append(check_pos_conv(32, 152, 64, 16, 16, dev))
+    results.append(check_pos_conv(2, 130, 768, 48, 128, dev))
     at_main["fm_norm_lv60"] = check_fm(spec_lv60, tables, "lv60")
     results.append(check_fm(spec_main.contiguous(), tables, "main_path_contiguous"))
     results.append(check_fm(spec_lv60.contiguous(), tables, "lv60_contiguous"))
@@ -583,8 +653,11 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
 
     # per train step: every layer forward and backward in each microbatch,
     # one projection; the eval step is one forward pass over the batch
-    # (bf16, head dim 64: the wgmma route of K1/K2)
-    per_step = counts(attention_fwd_sm90=k1 * L * accum, attention_bwd_sm90=L * accum, fm_norm=1)
+    # (bf16, head dim 64: the wgmma route of K1/K2); the positional conv
+    # once each way a microbatch, through K5 in bf16
+    pc = int(mcfg.compute_dtype == "bfloat16")
+    per_step = counts(attention_fwd_sm90=k1 * L * accum, attention_bwd_sm90=L * accum, fm_norm=1,
+                      pos_conv=pc * accum, pos_conv_dgrad=pc * accum)
     times = lambda n: {k: v * n for k, v in per_step.items()}
     torch.cuda.reset_peak_memory_stats(dev)
     _lib.reset_launches()
@@ -607,7 +680,8 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
     e = evaluate(p, audio, labels, pads, weights)
     eval_loss = float(e.ctc_loss)
     launches = dict(_lib.launches)
-    want = {**times(n), "attention_fwd_sm90": times(n)["attention_fwd_sm90"] + L}
+    want = {**times(n), "attention_fwd_sm90": times(n)["attention_fwd_sm90"] + L,
+            "pos_conv": times(n)["pos_conv"] + pc}
     check(launches == want, f"{phase}: eval step launched {launches}, want {want}")
     peak = torch.cuda.max_memory_allocated(dev)
     p_abs = float(p.abs().max())
@@ -714,8 +788,11 @@ def expected_cli_launches(argv: list[str], facts: dict, fm: bool, route: str,
     projects once; the clean eval runs once, the perturbed eval once per
     cell and epoch, the test split clean once and perturbed once per cell;
     each cell's initial perturbation is projected once. ``route`` is the
-    suffix of the attention counters ("" for the register route, "_sm90" for wgmma)."""
+    suffix of the attention counters ("" for the register route, "_sm90" for wgmma).
+    Each forward runs the positional conv once and each backward its input
+    gradient, through K5 under the bf16 compute dtype."""
     args = parser.create_arg_parser().parse_known_args(argv)[0]
+    pc = int(args.compute_dtype == "bfloat16")
     A = args.accum_steps
     L = wav2vec2.get_config(args.model).num_hidden_layers
     nb = lambda n: math.ceil(n / args.batch_size)
@@ -723,7 +800,8 @@ def expected_cli_launches(argv: list[str], facts: dict, fm: bool, route: str,
     evals = nb(facts["eval"]) * (1 + cells * facts["epochs"]) + (1 + cells) * nb(facts["test"])
     return counts(**{f"attention_fwd{route}": L * (A * steps + evals),
                      f"attention_bwd{route}": L * A * steps,
-                     "fm_norm": (steps + cells) if fm else 0})
+                     "fm_norm": (steps + cells) if fm else 0,
+                     "pos_conv": pc * (A * steps + evals), "pos_conv_dgrad": pc * A * steps})
 
 
 def phase_cli(card: str) -> dict:
@@ -944,13 +1022,17 @@ def pretrain_frames(argv: list[str]) -> int:
 
 def pretrain_launches(cfg, pipe, history: dict, route: str) -> dict:
     """What a pretraining run launches: every layer forward and backward per
-    step, forward per batch of each eval pass and of the final test pass."""
-    L = wav2vec2.get_config(cfg.model).num_hidden_layers
+    step, forward per batch of each eval pass and of the final test pass;
+    the positional conv once a forward and once a backward, through K5 under
+    the bf16 compute dtype (base; the tiny recipe runs float32)."""
+    mcfg = wav2vec2.get_config(cfg.model)
+    L, pc = mcfg.num_hidden_layers, int(mcfg.compute_dtype == "bfloat16")
     nb = lambda split: math.ceil(len(split) / cfg.batch_size)
     steps = history["eval_step"][-1]  # the run ends at an eval
     evals = len(history["eval_step"]) * nb(pipe.eval) + nb(pipe.test)
     return counts(**{f"attention_fwd{route}": L * (steps + evals),
-                     f"attention_bwd{route}": L * steps})
+                     f"attention_bwd{route}": L * steps,
+                     "pos_conv": pc * (steps + evals), "pos_conv_dgrad": pc * steps})
 
 
 def run_pretrain(name: str, argv: list[str]) -> tuple[dict, dict, float, str]:
@@ -1260,8 +1342,10 @@ def phase_parallel(dev, card: str, anchor: dict) -> dict:
     refs = {"dp": one_device_reference(dev, PAR_DP_B), "tp": one_device_reference(dev, PAR_TP_B)}
     records, seconds = run_ranks("steps", root, [])
     # per rank: ∂loss/∂p and two steps, each every layer forward and
-    # backward (bf16, head dim 64: the wgmma route), each step one K3
-    want = counts(attention_fwd_sm90=3 * L, attention_bwd_sm90=3 * L, fm_norm=2)
+    # backward (bf16, head dim 64: the wgmma route), each step one K3; every
+    # rank runs the whole positional conv, K5 once each way a pass
+    want = counts(attention_fwd_sm90=3 * L, attention_bwd_sm90=3 * L, fm_norm=2, pos_conv=3,
+                  pos_conv_dgrad=3)
     for name, B in (("dp", PAR_DP_B), ("tp", PAR_TP_B)):
         ref = refs[name]
         saved = [torch.load(os.path.join(root, f"{name}_rank{r}.pt"), weights_only=True)
@@ -1779,6 +1863,7 @@ K1_TPU = "paa_tpu/ops/pallas/attention.py:107 (_fwd_kernel, via _attend_fwd :196
 K2_TPU = "paa_tpu/ops/pallas/attention.py:133 (_bwd_kernel, via _attend_bwd :218)"
 K4_TPU = "paa_tpu/models/wav2vec2.py:766 (_flash_attention, stock Pallas flash_attention, {})"
 K3_TPU = "paa_tpu/ops/pallas/fm_norm.py:40 (_kernel, via fm_weighted_power_sum :61)"
+K5_TPU = "none: paa_tpu/models/wav2vec2.py:535-573 runs lax.conv_general_dilated"
 REMAT_NAMES = tuple(name for name, _ in REMAT_RUNS)  # phase 11 (a), at phase 5's shapes
 # phase 12 (a) and (d), at phase 4's shapes; (b), at phase 5's
 LOWERING_BASE_NAMES = tuple(f"lowering_base_{impl}" for impl in CONV_IMPLS) + ("fused_qkv",)
@@ -1840,6 +1925,16 @@ KERNELS = (
      ("cli_tp",), "attention_tiny_tp", "fwd"),
     ("attention_bwd_reg_tp", "attention_bwd", "paa_tpu_torch/csrc/attention_bwd.cu", K2_TPU,
      ("cli_tp",), "attention_tiny_tp", "bwd"),
+    # K5 at base's batch (phase 4 and 12 (a)) and an lv60 microbatch (phases
+    # 5, 11 (a) and 12 (b))
+    ("pos_conv_fwd", "pos_conv", "paa_tpu_torch/csrc/pos_conv.cu", K5_TPU,
+     ("main",) + LOWERING_BASE_NAMES, "pos_conv", "fwd"),
+    ("pos_conv_dgrad", "pos_conv_dgrad", "paa_tpu_torch/csrc/pos_conv.cu", K5_TPU,
+     ("main",) + LOWERING_BASE_NAMES, "pos_conv", "dgrad"),
+    ("pos_conv_fwd_long", "pos_conv", "paa_tpu_torch/csrc/pos_conv.cu", K5_TPU,
+     ("lv60",) + REMAT_NAMES + LOWERING_LV60_NAMES, "pos_conv_long", "fwd"),
+    ("pos_conv_dgrad_long", "pos_conv_dgrad", "paa_tpu_torch/csrc/pos_conv.cu", K5_TPU,
+     ("lv60",) + REMAT_NAMES + LOWERING_LV60_NAMES, "pos_conv_long", "dgrad"),
 )
 
 
@@ -1849,6 +1944,14 @@ def kernel_row(check_out: dict, direction: str | None) -> dict:
         keys = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         return {k: check_out[k] for k in keys}
+    if check_out["kernel"] == "pos_conv":  # K5
+        err = (max(check_out["pre_max_abs_err"], check_out["out_max_abs_err"])
+               if direction == "fwd" else check_out["dx_max_abs_err"])
+        return {"shape": [check_out[k] for k in ("B", "T", "H", "Cg", "K")],
+                "dtype": check_out["dtype"], "max_abs_err": err,
+                **{k: check_out[f"{direction}_{k}"] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "peak_share",
+                    "library_ms")}}
     err = (check_out["o_max_abs_err"] if direction == "fwd" else
            max(check_out[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")))
     return {"shape": [check_out[k] for k in ("B", "T", "H", "d")], "dtype": check_out["dtype"],

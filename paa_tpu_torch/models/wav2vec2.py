@@ -31,7 +31,9 @@ Numerics follow the reference's placement:
   * the feature extractor's GELU is the tanh approximation under bf16 and
     exact erf under f32 (``fe_gelu="auto"``; "exact" and "tanh" force one);
   * the positional conv is weight-normed per tap (dim=2), grouped, with
-    the SamePad trim of one frame for an even kernel;
+    the SamePad trim of one frame for an even kernel; it goes through
+    ``ops/kernels/pos_conv.py`` (K5 for bf16 on a CUDA tensor, the stock
+    ``F.conv1d`` otherwise);
   * the ``lm_head`` runs in float32;
   * attention goes through ``ops/kernels/attention.py`` (K1/K2 on a CUDA
     tensor, their plain version on a CPU tensor);
@@ -52,6 +54,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from paa_tpu_torch.ops.kernels.attention import attention
+from paa_tpu_torch.ops.kernels.pos_conv import positional_conv
 from paa_tpu_torch.parallel import tp
 from paa_tpu_torch.spans import span
 
@@ -563,17 +566,12 @@ class PositionalConvEmbedding(nn.Module):
                               groups=cfg.num_conv_pos_embedding_groups)
         # weight = g · v / ‖v‖ with one gain per kernel tap
         nn.utils.parametrizations.weight_norm(self.conv, name="weight", dim=2)
-        self.trim = 1 if K % 2 == 0 else 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, H)
         with span("paa.pos_conv"):
             dt = x.dtype
             c = self.conv
-            y = F.conv1d(x.transpose(1, 2), c.weight.to(dt), c.bias.to(dt), padding=c.padding,
-                         groups=c.groups)
-            if self.trim:
-                y = y[:, :, : -self.trim]
-            return F.gelu(y.transpose(1, 2))
+            return positional_conv(x, c.weight.to(dt), c.bias.to(dt))
 
 
 class SelfAttention(nn.Module):

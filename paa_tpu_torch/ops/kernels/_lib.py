@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paa_tpu_torch"
 SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "attention_fwd_sm90.cu",
-           "attention_bwd_sm90.cu", "fm_norm.cu")
+           "attention_bwd_sm90.cu", "fm_norm.cu", "pos_conv.cu")
 HEADERS = ("attention_common.cuh", "attention_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,9 +36,10 @@ NVCC_FLAGS = (
 
 # attention_fwd/_bwd: the register-route kernels (float32, and bf16 with head
 # dim 16);
-# attention_fwd_sm90/_bwd_sm90: the wgmma + TMA kernels (bf16, head dim 64)
+# attention_fwd_sm90/_bwd_sm90: the wgmma + TMA kernels (bf16, head dim 64);
+# pos_conv/_dgrad: the positional conv's forward and input gradient (bf16)
 launches = {"attention_fwd": 0, "attention_bwd": 0, "attention_fwd_sm90": 0,
-            "attention_bwd_sm90": 0, "fm_norm": 0}
+            "attention_bwd_sm90": 0, "fm_norm": 0, "pos_conv": 0, "pos_conv_dgrad": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -55,6 +56,10 @@ _SIGNATURES = {
     # stft, table, in_domain, partials, ticket, out, B, F, T, its strides,
     # max blocks, threads, stream
     "paa_fm_power_sum": (_P,) * 6 + (_I,) * 3 + (_L,) * 3 + (_I,) * 2 + (_P,),
+    # x, taps, bias, pre, out, B, T, H, Cg, K, stream
+    "paa_pos_conv_fwd": (_P,) * 5 + (_I,) * 5 + (_P,),
+    # dpre, taps, dx, B, T, H, Cg, K, stream
+    "paa_pos_conv_dgrad": (_P,) * 3 + (_I,) * 5 + (_P,),
     "paa_error_string": (_I,),
 }
 

@@ -54,6 +54,7 @@ from paa_tpu_torch.attack import optimizers, step  # noqa: E402
 from paa_tpu_torch.config import AttackConfig, ConstraintParams  # noqa: E402
 from paa_tpu_torch.models import wav2vec2  # noqa: E402
 from paa_tpu_torch.ops import psycho, text  # noqa: E402
+from paa_tpu_torch.ops.kernels import pos_conv  # noqa: E402
 from paa_tpu_torch.train import pretrain  # noqa: E402
 from portbench import spans, trace  # noqa: E402
 
@@ -72,6 +73,7 @@ GROUPS = (
     ("attention K2 dq (attn_bwd_dq_sm90)", ("attn_bwd_dq_sm90",)),
     ("attention K2 prep (attn_bwd_prep)", ("attn_bwd_prep",)),
     ("K3 fm_norm", ("fm_",)),
+    ("K5 positional conv (pos_conv_kernel)", ("pos_conv_kernel",)),
     ("convolutions: weight gradients (cuDNN wgrad)", ("wgrad",)),
     ("convolutions: input gradients (cuDNN dgrad)", ("dgrad",)),
     ("convolutions: forward and other (cuDNN)", ("fprop", "implicit", "conv", "cudnn")),
@@ -104,7 +106,8 @@ SCOPES = (
 OUTSIDE = "outside the model: CTC, update, projection"
 # kernel kinds, first match wins (lower-cased kernel name)
 KINDS = (
-    ("attention", ("attn_",)), ("K3", ("fm_",)), ("conv", ("wgrad", "dgrad", "fprop", "conv",
+    ("attention", ("attn_",)), ("K3", ("fm_",)), ("K5", ("pos_conv_kernel",)),
+    ("conv", ("wgrad", "dgrad", "fprop", "conv",
                                                           "cudnn", "implicit")),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet")), ("GELU", ("gelu",)),
     ("LayerNorm kernels", ("layer_norm", "layernorm", "gammabeta")),
@@ -230,7 +233,9 @@ def fe_layer0_backward_peak(one_step, model, dev) -> dict:
 
 def conv_grad_ms(model, audio, iters: int = 10) -> dict:
     """Each convolution's weight gradient and input gradient alone, at the
-    input one forward gives it and a random output gradient: ms per call."""
+    input one forward gives it and a random output gradient: ms per call.
+    The positional conv's input gradient in bf16 is K5's, as the model runs
+    it; every other is cuDNN's."""
     inputs = {}
     layers = {f"fe_conv_{i}": layer for i, layer in enumerate(model.wav2vec2.feature_extractor
                                                                 .conv_layers)}
@@ -251,9 +256,14 @@ def conv_grad_ms(model, audio, iters: int = 10) -> dict:
         stride, padding, groups = conv.stride[0], conv.padding[0], conv.groups
         gy = torch.randn_like(torch.nn.functional.conv1d(x, w, None, stride, padding, 1, groups))
         row = {"x": list(x.shape), "w": list(w.shape), "groups": groups}
-        for what, mask in (("wgrad_ms", [False, True, False]), ("dgrad_ms", [True, False, False])):
-            call = lambda: torch.ops.aten.convolution_backward(
-                gy, x, w, None, [stride], [padding], [1], False, [0], groups, mask)
+        calls = {what: (lambda mask=mask: torch.ops.aten.convolution_backward(
+                     gy, x, w, None, [stride], [padding], [1], False, [0], groups, mask))
+                 for what, mask in (("wgrad_ms", [False, True, False]),
+                                    ("dgrad_ms", [True, False, False]))}
+        if name == "pos_conv" and x.dtype == torch.bfloat16:
+            dpre = gy[:, :, : x.shape[-1]].transpose(1, 2).contiguous()
+            calls["dgrad_ms"] = lambda: pos_conv.pos_conv_dgrad(dpre, w)
+        for what, call in calls.items():
             call()
             torch.cuda.synchronize()
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
