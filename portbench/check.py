@@ -1,6 +1,7 @@
 """What decides ``correct``: the program's outputs held against the plain
-reference of :mod:`portbench.reference`, computed again from the seed's
-inputs in float32.
+reference of the configuration's family (``reference/<family>.py``, around
+:mod:`portbench.reference.attack`), computed again from the seed's inputs
+in float32.
 
 An attack cell records the first three steps of the window's last epoch,
 as ``AttackRunner.train_epoch`` drove them. The reference follows them from
@@ -40,9 +41,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from portbench import inputs
+from portbench import family, inputs
 from portbench.reference import attack as ref
-from portbench.reference import wav2vec2 as ref_model
 
 HEAD = 16  # samples of each row that identify its clip
 
@@ -122,7 +122,7 @@ def attack_numbers(records: list, p0: torch.Tensor, clips: inputs.Clips, cfg: di
                    traffic: dict, seed: int, dev, rows: int) -> dict:
     """The attack cell's numbers (module docstring); ``p0`` is the program's
     start."""
-    params = _params(cfg, seed, dev)
+    model, params = family.reference(cfg), _params(cfg, seed, dev)
     geom = _geometry(traffic)
     tab = ref.tables(geom, dev)
     eps = traffic["fm_epsilon"]
@@ -134,8 +134,8 @@ def attack_numbers(records: list, p0: torch.Tensor, clips: inputs.Clips, cfg: di
         if batch is None:
             return {k: math.inf for k in out}
         audio, labels, lengths = batch
-        res = ref.run_batch(params, cfg, audio, labels, lengths, rec.weights.float(), rec.p_in,
-                            rec.ids, rows, grad=True, clamp=True)
+        res = ref.run_batch(model, params, cfg, audio, labels, lengths, rec.weights.float(),
+                            rec.p_in, rec.ids, rows, grad=True, clamp=True)
         stepped = ref.sign_step(rec.p_in, res.grad, rec.lr)
         p_ref = ref.project(stepped, eps, geom, tab)
         c = float(torch.dot(p_ref.flatten(), stepped.flatten()) / torch.dot(
@@ -164,7 +164,7 @@ def eval_positions(batches_per_pass: int, k: int, seed: int) -> list:
 def eval_numbers(records: list, clips: inputs.Clips, cfg: dict, traffic: dict, seed: int,
                  dev, rows: int) -> dict:
     """The eval cell's numbers over the recorded calls (module docstring)."""
-    params = _params(cfg, seed, dev)
+    model, params = family.reference(cfg), _params(cfg, seed, dev)
     geom = _geometry(traffic)
     p = ref.initial_p(seed, clips.audio.shape[1], traffic["fm_epsilon"], geom,
                       ref.tables(geom, dev), dev)
@@ -174,7 +174,7 @@ def eval_numbers(records: list, clips: inputs.Clips, cfg: dict, traffic: dict, s
         if batch is None:
             return {k: math.inf for k in out}
         audio, labels, lengths = batch
-        res = ref.run_batch(params, cfg, audio, labels, lengths, rec.weights.float(), p,
+        res = ref.run_batch(model, params, cfg, audio, labels, lengths, rec.weights.float(), p,
                             rec.ids, rows, grad=False, clamp=False)
         out["loss_rel"] = max(out["loss_rel"], abs(float(rec.loss) - res.loss) / abs(res.loss))
         out["logit_gap"] = max(out["logit_gap"], res.logit_gap)
@@ -184,11 +184,11 @@ def eval_numbers(records: list, clips: inputs.Clips, cfg: dict, traffic: dict, s
 def control_records(records: list, clips: inputs.Clips, cfg: dict, traffic: dict, seed: int,
                     dev, rows: int) -> list:
     """The control in the program's place: for each recorded call, the
-    reference computed in fp8 (``reference.wav2vec2.Precision``) on the same
-    rows and the same ``p`` gives the loss, the greedy ids and, for a train
-    step, the new ``p`` (its sign step and projection)."""
-    params = _params(cfg, seed, dev)
-    prec = ref_model.Precision("fp8")
+    family's reference computed in fp8 (its ``Precision("fp8")``) on the
+    same rows and the same ``p`` gives the loss, the greedy ids and, for a
+    train step, the new ``p`` (its sign step and projection)."""
+    model, params = family.reference(cfg), _params(cfg, seed, dev)
+    prec = model.Precision("fp8")
     geom = _geometry(traffic)
     tab = ref.tables(geom, dev)
     eps = traffic["fm_epsilon"]
@@ -197,7 +197,7 @@ def control_records(records: list, clips: inputs.Clips, cfg: dict, traffic: dict
     for rec in records:
         audio, labels, lengths = _batch(rec, clips, dev)
         train = rec.p_in is not None
-        res = ref.run_batch(params, cfg, audio, labels, lengths, rec.weights.float(),
+        res = ref.run_batch(model, params, cfg, audio, labels, lengths, rec.weights.float(),
                             rec.p_in if train else p_eval, None, rows, grad=train,
                             clamp=train, prec=prec)
         p_out = ref.project(ref.sign_step(rec.p_in, res.grad, rec.lr), eps, geom,

@@ -1,25 +1,27 @@
 """Operations and bytes of the work, counted from a configuration's widths
 and a cell's shapes: never read from the program.
 
-The model's FLOPs count its convolutions and matrix products at 2 FLOPs a
-multiply-add: the seven feature-extractor convs (``2·B·T_out·C_out·C_in·k``
-each), the feature projection, the grouped positional conv over the
-encoder's frames, q, k, v and o, the FFN, attention's two products
-(``2·B·T²·H`` each) and the CTC head. An attack step adds the input
-gradients that ∂loss/∂p needs: as much again for every conv and linear,
-layer 0 included, and twice the forward for attention's two products; the
-victim is frozen, so no weight gradient is counted, and nothing recomputed
-is counted.
+A forward pass's FLOPs by part are the family's to count
+(``families/<family>.py``'s ``forward_flops``, at 2 FLOPs a multiply-add,
+with ``attention`` one of the parts). An attack step adds the input
+gradients that ∂loss/∂p needs: as much again for every part, layer 0
+included, and twice the forward for attention's two products; the victim
+is frozen, so no weight gradient is counted, and nothing recomputed is
+counted.
 
 The attention bound follows the flash algorithm (one call a layer and
-microbatch): the forward's ``4·B·H·T²·d`` operations, reading q, k and v
-and writing o and the log-sum-exp; the backward's five T×T×d products
-(``10·B·H·T²·d``, the scores computed again), reading q, k, v, o, do and
-the log-sum-exp and writing dq, dk and dv. Its least time is the larger of
-the operations at the bf16 peak and the bytes at the memory's rate.
+microbatch) on the encoder's widths (``num_attention_heads`` heads of
+``hidden_size / num_attention_heads``): the forward's ``4·B·H·T²·d``
+operations, reading q, k and v and writing o and the log-sum-exp; the
+backward's five T×T×d products (``10·B·H·T²·d``, the scores computed
+again), reading q, k, v, o, do and the log-sum-exp and writing dq, dk and
+dv. Its least time is the larger of the operations at the bf16 peak and the
+bytes at the memory's rate.
 """
 
 from __future__ import annotations
+
+from portbench import family
 
 # NVIDIA H100 SXM, dense, at its 700 W limit (NVIDIA's data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -33,32 +35,10 @@ def frames(cfg: dict, samples: int) -> int:
     return n
 
 
-def forward_flops(cfg: dict, batch: int, samples: int) -> dict:
-    """FLOPs of one forward pass by part: ``fe``, ``projection``,
-    ``pos_conv``, ``linears`` (q, k, v, o and the FFN of every layer),
-    ``attention`` (its two products in every layer) and ``head``."""
-    B = batch
-    fe, n, c_in = 0, samples, 1
-    for c, k, s in zip(cfg["conv_dim"], cfg["conv_kernel"], cfg["conv_stride"]):
-        n = (n - k) // s + 1
-        fe += 2 * B * n * c * c_in * k
-        c_in = c
-    T, H, I = n, cfg["hidden_size"], cfg["intermediate_size"]
-    L, K = cfg["num_hidden_layers"], cfg["num_conv_pos_embeddings"]
-    G = cfg["num_conv_pos_embedding_groups"]
-    return {
-        "fe": fe,
-        "projection": 2 * B * T * c_in * H,
-        "pos_conv": 2 * B * T * H * (H // G) * K,
-        "linears": L * (2 * B * T * H * H * 4 + 2 * B * T * H * I * 2),
-        "attention": L * 2 * (2 * B * T * T * H),
-        "head": 2 * B * T * H * cfg["vocab_size"],
-    }
-
-
 def batch_flops(cfg: dict, batch: int, samples: int, mode: str) -> int:
-    """FLOPs of one batch: a forward pass (``eval``) or an attack step."""
-    parts = forward_flops(cfg, batch, samples)
+    """FLOPs of one batch: a forward pass (``eval``) or an attack step, from
+    the forward's parts as the configuration's family counts them."""
+    parts = family.program(cfg).forward_flops(cfg, batch, samples)
     total = sum(parts.values())
     if mode == "eval":
         return total

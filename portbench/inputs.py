@@ -6,9 +6,11 @@ the traffic's length. Each transcript is a uniform number of words between
 the traffic's bounds, drawn from a fixed bank; its labels use the 32-token
 character vocabulary of the facebook wav2vec2 CTC checkpoints (blank 0,
 ``|`` between words). The weights are drawn on the device from a
-``torch.Generator`` seeded with the seed, one draw for all of them, and are
-made in the type they are served in: the convolutions' and matrix products'
-weights in bfloat16, everything else in float32.
+``torch.Generator`` seeded with the seed, one draw for all of them, in the
+order of the family's parameter table (``reference/<family>.py``'s
+``param_specs``), and are made in the type they are served in: the
+convolutions' and matrix products' weights in bfloat16, everything else in
+float32.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from portbench.reference import wav2vec2 as ref_model
+from portbench import family
 
 VOCAB = (
     "<pad>", "<s>", "</s>", "<unk>", "|",
@@ -70,13 +72,32 @@ def clips(seed: int, stream: int, n: int, samples: int, words: tuple, std: float
     return Clips(audio, texts, labels, lengths, paddings)
 
 
+# how each kind of parameter is made from its slice ``x`` of the draw: a
+# tensor of its own (no view of the draw), in the type it is served in; a
+# family's reference adds kinds of its own (``KINDS``), never one of these
+KINDS = {
+    "matmul": lambda x, shape, cfg: (x * math.prod(shape[1:]) ** -0.5).to(torch.bfloat16),
+    "branch_out": lambda x, shape, cfg: (
+        x * (math.prod(shape[1:]) * 2 * cfg["num_hidden_layers"]) ** -0.5).to(torch.bfloat16),
+    "head": lambda x, shape, cfg: x * math.prod(shape[1:]) ** -0.5,
+    "bias": lambda x, shape, cfg: x * 0.02,
+    "norm_weight": lambda x, shape, cfg: 1.0 + 0.1 * x,
+    "norm_bias": lambda x, shape, cfg: x * 0.1,
+    "pos_gain": lambda x, shape, cfg: 1.0 + 0.1 * x,
+    "pos_direction": lambda x, shape, cfg: x.clone(),
+}
+
+
 def weights(cfg: dict, seed: int, device) -> dict:
-    """``{HF name: tensor}`` on ``device``: matmul and conv weights
-    N(0, 1/fan_in) in bfloat16, the last product of each encoder branch
-    (attention's ``out_proj``, the FFN's ``output_dense``) scaled by
+    """``{HF name: tensor}`` on ``device``, in the order and kinds of the
+    family's ``param_specs``: matmul and conv weights N(0, 1/fan_in) in
+    bfloat16, the last product of each encoder branch (attention's
+    ``out_proj``, the FFN's ``output_dense``) scaled by
     ``1/sqrt(2·layers)``; the head N(0, 1/fan_in), biases N(0, 0.02²), norm
     gains 1 + N(0, 0.1²), norm shifts N(0, 0.1²), the positional conv's
-    per-tap gains 1 + N(0, 0.1²) and its direction N(0, 1), all in float32.
+    per-tap gains 1 + N(0, 0.1²) and its direction N(0, 1), all in float32;
+    a kind of the family's own as its ``KINDS`` makes it. Each takes the
+    next slice of the one draw, whatever its kind.
 
     The branch scaling keeps each frame's own features through the stack:
     with every branch at full scale the random encoder maps all frames of a
@@ -86,26 +107,21 @@ def weights(cfg: dict, seed: int, device) -> dict:
     Scaled, the logits move from frame to frame with the input, and near
     ties between the best two tokens, which the check reads, occur on every
     seed."""
-    specs = ref_model.param_specs(cfg)
+    ref = family.reference(cfg)
+    own = getattr(ref, "KINDS", {})
+    clash = own.keys() & KINDS.keys()
+    if clash:
+        raise ValueError(f"family {cfg['family']!r} redefines the kinds {sorted(clash)}")
+    kinds = {**KINDS, **own}
+    specs = ref.param_specs(cfg)
     total = sum(math.prod(shape) for shape, _ in specs.values())
     gen = torch.Generator(device=device).manual_seed(seed)
     draw = torch.randn(total, generator=gen, device=device)
     out, at = {}, 0
     for name, (shape, kind) in specs.items():
         n = math.prod(shape)
-        x = draw[at:at + n].view(shape)
+        out[name] = kinds[kind](draw[at:at + n].view(shape), shape, cfg)
         at += n
-        if kind in ("matmul", "head"):
-            x = x * math.prod(shape[1:]) ** -0.5
-        elif kind == "branch_out":
-            x = x * (math.prod(shape[1:]) * 2 * cfg["num_hidden_layers"]) ** -0.5
-        elif kind == "bias":
-            x = x * 0.02
-        elif kind in ("norm_weight", "pos_gain"):
-            x = 1.0 + 0.1 * x
-        elif kind == "norm_bias":
-            x = x * 0.1
-        out[name] = x.to(torch.bfloat16) if kind in ("matmul", "branch_out") else x.clone()
     return out
 
 

@@ -1,6 +1,6 @@
-"""The plain attack around the plain model: the CTC loss of a batch and its
-gradient with respect to the universal perturbation ``p``, the PGD sign
-step and the Fletcher-Munson projection, all in float32.
+"""The plain attack around a family's plain model: the CTC loss of a batch
+and its gradient with respect to the universal perturbation ``p``, the PGD
+sign step and the Fletcher-Munson projection, all in float32.
 
 A batch runs in blocks of rows so that it fits the card: each block's loss
 is summed and its gradient is accumulated into one ``p``. The projection
@@ -19,7 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from portbench.reference import iso226, wav2vec2
+from portbench.reference import iso226
 
 
 class Geometry(NamedTuple):
@@ -93,11 +93,13 @@ class BatchResult(NamedTuple):
     ids: torch.Tensor  # (B, frames) int32, the reference's own greedy ids
 
 
-def run_batch(params: dict, cfg: dict, audio: torch.Tensor, labels: torch.Tensor,
+def run_batch(model, params: dict, cfg: dict, audio: torch.Tensor, labels: torch.Tensor,
               lengths: torch.Tensor, weights: torch.Tensor, p: torch.Tensor,
               ids: torch.Tensor | None, rows: int, grad: bool, clamp: bool,
-              prec: wav2vec2.Precision | None = None) -> BatchResult:
-    """Loss of ``audio + p`` (clamped to [-1, 1] with ``clamp``), its
+              prec=None) -> BatchResult:
+    """Through ``model``, the family's plain reference
+    (``reference/<family>.py``, with ``prec`` one of its ``Precision``s):
+    the loss of ``audio + p`` (clamped to [-1, 1] with ``clamp``), its
     gradient with respect to ``p`` when ``grad``, the reference's greedy
     ids, and the widest gap by which the logit of ``ids`` ``(B, frames)``
     lies below the row and frame's best over the rows of weight > 0 (0
@@ -110,8 +112,8 @@ def run_batch(params: dict, cfg: dict, audio: torch.Tensor, labels: torch.Tensor
             x = audio[block] + p_leaf
             if clamp:
                 x = torch.clamp(x, -1.0, 1.0)
-            logits = wav2vec2.forward(params, cfg, x, prec)
-            per_row = wav2vec2.ctc_losses(logits, labels[block], lengths[block])
+            logits = model.forward(params, cfg, x, prec)
+            per_row = model.ctc_losses(logits, labels[block], lengths[block])
             block_loss = torch.sum(per_row * weights[block])
             if grad:
                 block_loss.backward()

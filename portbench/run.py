@@ -200,15 +200,17 @@ class Run:
 
     def traced(self) -> dict:
         """One epoch or pass under the profiler, profiled again once if the
-        trace holds no device operation."""
-        from portbench import trace
+        trace holds no device operation: the benchmark's scopes (labelled
+        as the configuration's family says) and the program's spans."""
+        from portbench import family, spans, trace
 
+        fam = family.program(self.cell["config"])
         for _ in range(2):
-            with trace.scopes(self.runner):
+            with trace.scopes(self.runner, fam):
                 events, clips = trace.profile(self.unit)
-            summary = trace.summarize(events)
+            summary = trace.summarize(events, trace.labels(fam))
             if summary["device_ops"] > 0:
-                summary.update(clips=clips, units=1)
+                summary.update(spans.summarize(events), clips=clips, units=1)
                 return summary
         raise RuntimeError("the profiler's trace holds no device operation, twice")
 
@@ -243,7 +245,7 @@ def execute(cell: dict, seed: int, seconds: float, traced: bool, dev) -> dict:
     traced epoch), the peak, the check; the result without its device."""
     import torch
 
-    from portbench import check, counts
+    from portbench import check, counts, family
 
     run = Run(cell, seed, dev)
     run.sync()
@@ -251,13 +253,12 @@ def execute(cell: dict, seed: int, seconds: float, traced: bool, dev) -> dict:
     traffic, cfg = cell["traffic"], cell["config"]
     if traced:
         summary = run.traced()
+        bound_s = family.program(cfg).bounds(cfg, traffic, run.mode)
         summary.update(
             batches=summary["units"] * -(-traffic["clips"] // traffic["batch_size"]),
             batch_flops=counts.batch_flops(cfg, traffic["batch_size"], traffic["samples"],
                                            run.mode),
-            attention_bound_s=counts.batch_attention_seconds(
-                cfg, traffic["batch_size"], traffic["samples"], run.mode,
-                traffic.get("accum_steps", 1)))
+            bound_s=bound_s, attention_bound_s=bound_s["attention"])
     else:
         summary = run.window(seconds)
     summary.update(mode=run.mode, setup_s=setup_s,

@@ -1,14 +1,15 @@
 """The program's own spans in a traced epoch or pass, and the charge rule
-that ``trace.py`` applies, with its labels given by a predicate.
+that ``trace.py`` applies to the benchmark's scopes, with its labels given
+by a predicate.
 
     python3 portbench/spans.py --workload <cell> --seed <n>
 
 From the root of a checkout, on the card: the cell's set-up as ``run.py``
-makes it, then one epoch or pass traced as ``run.py --trace 1`` traces it
-(the benchmark's scopes open too). It prints one JSON line: the card,
-``trace.summarize``'s numbers, :func:`summarize`'s, and per batch the
-quantities read from the spans beside the benchmark's scopes of the same
-layers. It checks nothing against the reference.
+makes it, then one epoch or pass traced as ``run.py --trace 1`` traces it.
+It prints one JSON line: the card, the traced summary's numbers (the
+scopes' and :func:`summarize`'s, which the traced summary carries), and per
+batch the quantities read from the spans beside the benchmark's scopes of
+the same layers. It checks nothing against the reference.
 
 The program (``paa_tpu_torch/spans.py``) opens ``record_function`` ranges
 named ``paa.*`` while a profiler runs. :func:`summarize` reduces a trace to
@@ -91,6 +92,10 @@ def charge(events: list, is_label, w0: float, w1: float):
                 return fwd.get(e.get("args", {}).get("Sequence number"), trace.OUTSIDE)
         return trace.OUTSIDE
 
+    # each instant of device activity is charged once, to the operation that
+    # started first among those running: Hopper's library kernels launch
+    # early and overlap their predecessor, so their durations sum to more
+    # than the busy time
     edge = w0
     for e in sorted(device, key=lambda e: e["ts"]):
         a, b = max(e["ts"], edge), min(e["ts"] + e["dur"], w1)
@@ -188,22 +193,20 @@ def main(argv=None) -> int:
         print("portbench/spans.py: no CUDA device", file=sys.stderr)
         return 2
     cell = run.load_cell(args.workload)
-    r = run.Run(cell, args.seed % 2**63, system.device())
-    with trace.scopes(r.runner):
-        events, clips = trace.profile(r.unit)
-    bench, spans = trace.summarize(events), summarize(events)
+    s = run.Run(cell, args.seed % 2**63, system.device()).traced()
     traffic = cell["traffic"]
     batches = -(-traffic["clips"] // traffic["batch_size"])
-    scope_ms = bench["scope_ms"]
-    against = {k: {"span_ms": spans["span_ms"].get(k), "scope_ms": scope_ms.get(v),
-                   "rel": (spans["span_ms"].get(k, 0.0) / scope_ms[v] - 1) if scope_ms.get(v)
+    scope_ms = s["scope_ms"]
+    against = {k: {"span_ms": s["span_ms"].get(k), "scope_ms": scope_ms.get(v),
+                   "rel": (s["span_ms"].get(k, 0.0) / scope_ms[v] - 1) if scope_ms.get(v)
                    else None} for k, v in HOOKED.items()}
+    spans = {k: s[k] for k in ("span_ms", "span_host_ms", "span_idle_ms")}
     print(json.dumps({"workload": args.workload, "seed": args.seed,
-                      "card": torch.cuda.get_device_name(0), "clips": clips, "batches": batches,
-                      "window_s": bench["window_s"], "busy_s": bench["busy_s"],
+                      "card": torch.cuda.get_device_name(0), "clips": s["clips"],
+                      "batches": batches, "window_s": s["window_s"], "busy_s": s["busy_s"],
                       "scope_ms": scope_ms, **spans, "per_batch": per_batch(spans, batches),
                       "spans_against_scopes": against,
-                      "idle_gaps": bench["breakdown"]["idle_gaps"]}), flush=True)
+                      "idle_gaps": s["breakdown"]["idle_gaps"]}), flush=True)
     return 0
 
 

@@ -5,16 +5,17 @@ inputs.
 A cell gets ``paa_tpu_torch.train.loop.AttackRunner(cfg, model, pipe)`` on
 one device: an ``AttackConfig`` with fletcher_munson PGD, untargeted, the
 traffic's batch, microbatches and learning rate and the other fields at
-their defaults; a ``Wav2Vec2ForCTC`` of the configuration's widths, built on
-the device with its matmul and conv weights stored in bfloat16
-(``cast_param_storage``) and loaded with the benchmark's weights; and a
+their defaults; the model of the configuration's family
+(``families/<family>.py``'s ``build_model``: the configuration's widths,
+built on the device with its matmul and conv weights stored as the
+configuration serves them, loaded with the benchmark's weights); and a
 ``DataPipeline`` of the benchmark's splits. Its feed is the default one:
 on a CUDA device each split that stages in the auto budget becomes a
 ``DeviceCorpus``.
 
-This module is the only one of the benchmark that imports the program,
-apart from the scopes of :mod:`portbench.trace` and the planted faults of
-:mod:`portbench.faults`; the reference imports none of it.
+The program is imported here, in the families' builders, in the scopes of
+:mod:`portbench.trace` and in the planted faults of :mod:`portbench.faults`;
+the reference imports none of it.
 """
 
 from __future__ import annotations
@@ -25,37 +26,15 @@ from paa_tpu_torch import runtime
 from paa_tpu_torch.attack import optimizers
 from paa_tpu_torch.config import AttackConfig, ConstraintParams
 from paa_tpu_torch.data import pipeline
-from paa_tpu_torch.models import wav2vec2
 from paa_tpu_torch.train import loop
 
+from portbench import family
 from portbench.inputs import Clips
-
-# the configuration file's keys the program's Wav2Vec2Config takes as they are
-_MODEL_KEYS = ("vocab_size", "hidden_size", "num_hidden_layers", "num_attention_heads",
-               "intermediate_size", "conv_dim", "conv_kernel", "conv_stride", "conv_bias",
-               "feat_extract_norm", "do_stable_layer_norm", "num_conv_pos_embeddings",
-               "num_conv_pos_embedding_groups", "layer_norm_eps", "do_normalize")
 
 
 def device() -> torch.device:
     """The CUDA device, with the program's float32 policy (TF32 off)."""
     return runtime.require_cuda()
-
-
-def model_config(cfg: dict) -> wav2vec2.Wav2Vec2Config:
-    kw = {k: (tuple(cfg[k]) if isinstance(cfg[k], list) else cfg[k]) for k in _MODEL_KEYS}
-    return wav2vec2.Wav2Vec2Config(compute_dtype=cfg["assumed"]["compute_dtype"], **kw)
-
-
-def build_model(cfg: dict, weights: dict, dev: torch.device) -> wav2vec2.Wav2Vec2ForCTC:
-    # built where it runs: on "meta" the weight norm's set-up would go
-    # through torch's reference decompositions and import torch._dynamo,
-    # seconds of set-up that no run of the program pays
-    with torch.device(dev):
-        model = wav2vec2.Wav2Vec2ForCTC(model_config(cfg))
-    model.cast_param_storage(getattr(torch, cfg["assumed"]["param_storage"]))
-    model.load_state_dict(weights)
-    return model.requires_grad_(False).eval()
 
 
 def split(c: Clips) -> pipeline.Split:
@@ -78,7 +57,8 @@ def build_runner(cfg: dict, traffic: dict, weights: dict, train: Clips, evals: C
     pipe = pipeline.DataPipeline(train=tr, eval=ev or tr, test=ev or tr,
                                  audio_len=tr.audio_len)
     cparams = ConstraintParams.create(fm_epsilon=traffic["fm_epsilon"], device=dev)
-    return loop.AttackRunner(acfg, build_model(cfg, weights, dev), pipe, cparams, mesh=None)
+    model = family.program(cfg).build_model(cfg, weights, dev)
+    return loop.AttackRunner(acfg, model, pipe, cparams, mesh=None)
 
 
 def init_opt_state(runner: loop.AttackRunner, p: torch.Tensor):

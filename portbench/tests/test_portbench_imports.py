@@ -1,7 +1,7 @@
 """The import guard: nothing the benchmark runs loads JAX or the JAX
 package, and the reference loads nothing of the program either. Top-level
 module names are compared whole: the port's name begins with the JAX
-package's."""
+package's. A family's modules are named only by its own two files."""
 
 from __future__ import annotations
 
@@ -26,15 +26,20 @@ print(sorted({{m.split(".")[0] for m in sys.modules}}))
 """
 
 
-def _imports(path) -> set:
+def _modules(path) -> set:
+    """Every module ``path`` imports, ``from a import b`` as ``a.b``."""
     tree = ast.parse(path.read_text())
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            names.update(a.name.split(".")[0] for a in node.names)
+            names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names.add(node.module.split(".")[0])
+            names.update(f"{node.module}.{a.name}" for a in node.names)
     return names
+
+
+def _imports(path) -> set:
+    return {m.split(".")[0] for m in _modules(path)}
 
 
 def test_a_cpu_run_loads_no_jax():
@@ -54,3 +59,17 @@ def test_sources_import_no_jax():
 def test_the_reference_imports_nothing_of_the_program():
     for path in (ROOT / "portbench" / "reference").rglob("*.py"):
         assert not _imports(path) & (FORBIDDEN | {"paa_tpu_torch"}), path
+
+
+def test_only_a_familys_own_files_name_its_modules():
+    """No module of the harness but ``families/<family>.py`` and
+    ``reference/<family>.py`` imports a module named after a family: the
+    program's model of it, its reference, or its family file. The rest
+    finds them through ``portbench.family`` by the configuration's name."""
+    families = {p.stem for p in (ROOT / "portbench" / "families").glob("*.py")}
+    assert "wav2vec2" in families
+    for path in (ROOT / "portbench").rglob("*.py"):
+        if path.parent.name in ("families", "reference") and path.stem in families:
+            continue
+        for module in _modules(path):
+            assert not set(module.split(".")) & families, (path, module)

@@ -13,9 +13,8 @@ from paa_tpu_torch.attack import step as program_step
 from paa_tpu_torch.config import AttackConfig, ConstraintParams
 from paa_tpu_torch.ops import ctc as program_ctc
 from paa_tpu_torch.ops import projections, psycho
-from portbench import inputs, system
+from portbench import family, inputs, system
 from portbench.reference import attack as ref
-from portbench.reference import wav2vec2 as ref_model
 from portbench.tests import tiny
 
 GEOM = ref.Geometry(16000, 1024, 256, 1024)
@@ -26,7 +25,7 @@ def _setup(name: str, seed: int = 3):
     cfg["assumed"] = {**cfg["assumed"], "compute_dtype": "float32", "param_storage": "float32"}
     weights = inputs.weights(cfg, seed, torch.device("cpu"))
     params = {k: v.float() for k, v in weights.items()}
-    model = system.build_model(cfg, params, torch.device("cpu"))
+    model = family.program(cfg).build_model(cfg, params, torch.device("cpu"))
     clips = inputs.clips(seed, 1, 3, 16000, (2, 3), 0.1, torch.device("cpu"))
     audio = torch.from_numpy(clips.audio)
     return cfg, params, model, clips, audio
@@ -41,13 +40,14 @@ def test_logits_loss_and_gradient(name):
     weights = torch.ones(3)
     with torch.no_grad():
         got = model(audio + p)
-        want = ref_model.forward(params, cfg, audio + p)
+        want = family.reference(cfg).forward(params, cfg, audio + p)
     assert torch.allclose(got, want, atol=2e-4, rtol=1e-4), float((got - want).abs().max())
     acfg = AttackConfig(norm_type="fletcher_munson", optimizer_type="pgd", batch_size=3)
     loss, ids, grad = program_step._grad_and_metrics(model, acfg, p, audio, labels, pads,
                                                      weights)
-    res = ref.run_batch(params, cfg, audio, labels, torch.from_numpy(clips.lengths), weights,
-                        p, ids, rows=2, grad=True, clamp=True)
+    res = ref.run_batch(family.reference(cfg), params, cfg, audio, labels,
+                        torch.from_numpy(clips.lengths), weights, p, ids, rows=2, grad=True,
+                        clamp=True)
     assert abs(float(loss) - res.loss) <= 1e-4 * abs(res.loss)
     assert res.logit_gap <= 1e-4
     assert torch.equal(res.ids, program_ctc.greedy_ids(want))

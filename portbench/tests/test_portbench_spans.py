@@ -12,9 +12,9 @@ import json
 import pytest
 import torch
 
-from portbench import run, spans, trace
+from portbench import family, run, spans, trace
 from portbench.tests import tiny
-from portbench.tests.test_portbench_trace import _ev, _trace
+from portbench.tests.test_portbench_trace import LABELS, _ev, _trace
 
 CPU = torch.device("cpu")
 
@@ -36,7 +36,7 @@ def _remat():
 
 @pytest.mark.parametrize("events", [_with_spans, _remat])
 def test_the_benchmarks_summary_is_unchanged(events):
-    assert trace.summarize(events()) == trace.summarize(_trace())
+    assert trace.summarize(events(), LABELS) == trace.summarize(_trace(), LABELS)
 
 
 @pytest.mark.parametrize("events", [_trace, _with_spans, _remat])
@@ -44,10 +44,9 @@ def test_charge_with_the_benchmarks_labels_is_its_rule(events):
     evs = events()
     w = spans.window(evs)
     got = collections.Counter()
-    for name, _e, a, b in spans.charge(evs, trace.LABELS.__contains__, w["ts"],
-                                       w["ts"] + w["dur"]):
+    for name, _e, a, b in spans.charge(evs, LABELS.__contains__, w["ts"], w["ts"] + w["dur"]):
         got[name] += (b - a) / 1e3
-    assert dict(got) == trace.summarize(evs)["scope_ms"]
+    assert dict(got) == trace.summarize(evs, LABELS)["scope_ms"]
 
 
 def test_span_numbers_by_hand():
@@ -56,7 +55,8 @@ def test_span_numbers_by_hand():
     # pipelined gemm only for its 250-260 µs
     assert s["span_ms"] == pytest.approx({"paa.fe": 0.14, "paa.attention": 0.04,
                                           "paa.update": 0.09})
-    assert sum(s["span_ms"].values()) == pytest.approx(trace.summarize(_trace())["busy_s"] * 1e3)
+    assert sum(s["span_ms"].values()) == pytest.approx(
+        trace.summarize(_trace(), LABELS)["busy_s"] * 1e3)
     # paa.score less its wait: 235 - 104 µs
     assert s["span_host_ms"] == pytest.approx({"paa.fe": 0.096, "paa.attention": 0.046,
                                                "paa.update": 0.030, "paa.score": 0.131,
@@ -91,9 +91,11 @@ def test_model_spans_lie_in_the_benchmarks_scopes(mode, tmp_path):
     each ``paa.fe``, ``paa.pos_conv`` and ``paa.encoder`` lies inside the
     benchmark's scope of the same layer, one for one, and each ``paa.attention``
     around the one of the call it wraps."""
-    r = run.Run(tiny.cell("wav2vec2-large-lv60", mode, 2 if mode == "attack" else 1), 7, CPU)
+    cell = tiny.cell("wav2vec2-large-lv60", mode, 2 if mode == "attack" else 1)
+    r = run.Run(cell, 7, CPU)
     acts = [torch.profiler.ProfilerActivity.CPU]
-    with trace.scopes(r.runner), torch.profiler.profile(activities=acts) as prof:
+    with trace.scopes(r.runner, family.program(cell["config"])), \
+            torch.profiler.profile(activities=acts) as prof:
         with torch.profiler.record_function(trace.WINDOW):
             r.unit()
     path = tmp_path / "trace.json"

@@ -10,8 +10,7 @@ import re
 
 import pytest
 
-from paa_tpu_torch.models import wav2vec2
-from portbench import run, system
+from portbench import family, run
 from portbench.tests.tiny import ROOT
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -92,8 +91,12 @@ def test_files_found_by_name():
 def test_configuration_is_what_the_program_runs(config):
     cfg = json.loads((ROOT / config["file"]).read_text())
     assert cfg["source"] == config["source"] and cfg["reduced"] == config["reduced"]
+    # its family's two files, found by the family's name
+    assert NAME.fullmatch(cfg["family"])
+    for part in ("families", "reference"):
+        assert (ROOT / "portbench" / part / f"{cfg['family']}.py").is_file()
     # a key changed from the source holds what runs; the source's value is beside it
     for key in cfg["reduced"]:
         assert key in cfg and cfg["source_values"][key] != cfg[key]
-    preset = wav2vec2.get_config(cfg["program_preset"])
-    assert system.model_config(cfg) == preset
+    fam = family.program(cfg)
+    assert fam.model_config(cfg) == fam.preset_config(cfg["program_preset"])

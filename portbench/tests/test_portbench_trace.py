@@ -4,11 +4,15 @@ summaries they read."""
 from __future__ import annotations
 
 import importlib.util
+import types
 
 import pytest
 
 from portbench import run, trace
 from portbench.tests.tiny import ROOT
+
+# the labels of a family whose one model scope is ``fe``
+LABELS = trace.labels(types.SimpleNamespace(SCOPES={"FeatureExtractor": "fe"}))
 
 
 def _ev(cat, name, ts, dur, tid=1, **args):
@@ -42,7 +46,7 @@ def _trace():
 
 
 def test_summarize():
-    s = trace.summarize(_trace())
+    s = trace.summarize(_trace(), LABELS)
     assert s["window_s"] == pytest.approx(1e-3)
     assert s["busy_s"] == pytest.approx((60 + 40 + 80 + 90) * 1e-6)
     assert s["device_ops"] == 5

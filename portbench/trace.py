@@ -4,11 +4,13 @@ and the reduction of its trace to a summary the per-layer readers use.
 Scopes are ``record_function`` ranges opened from these files, never from
 the program's source:
 
-* ``fe``, ``pos_conv`` and ``encoder``: opened by forward pre-hooks and
-  closed by forward hooks on the model's modules, found by class name
-  (``FeatureExtractor``, ``PositionalConvEmbedding``, ``Encoder``);
+* the model's layers: opened by forward pre-hooks and closed by forward
+  hooks on the model's modules, found by class name and labelled as the
+  configuration's family says (``families/<family>.py``'s ``SCOPES``;
+  wav2vec2's ``fe``, ``pos_conv`` and ``encoder``);
 * ``attention``: around the model's call into the attention kernels (the
-  module attribute ``attention`` of ``paa_tpu_torch.models.wav2vec2``);
+  attribute ``attention`` of each module in the family's
+  ``ATTENTION_MODULES``);
 * host scopes for naming idle gaps: ``attack.step`` and ``attack.eval_step``
   around the runner's step functions, ``loop.scoring`` around the loop's
   host scoring (``paa_tpu_torch.train.loop._scores``).
@@ -16,9 +18,12 @@ the program's source:
 A device operation (kernel, copy or fill) is charged to the innermost
 scope around its launch, found through its correlation id; one launched by
 an autograd node of the backward is charged to the innermost scope of the
-forward operation that made the node, linked by sequence number. Where
-operations overlap in time, each instant is charged once, to the one that
-started first, so that the scopes add up to the device's busy time.
+forward operation that made the node, linked by sequence number, or to a
+scope opened inside the node (a recompute under remat). Where operations
+overlap in time, each instant is charged once, to the one that started
+first, so that the scopes add up to the device's busy time
+(``portbench.spans.charge``, the one rule for the scopes and the program's
+own spans).
 """
 
 from __future__ import annotations
@@ -26,19 +31,18 @@ from __future__ import annotations
 import bisect
 import collections
 import contextlib
+import importlib
 import json
 import os
 import tempfile
 
 import torch
 
-MODEL_SCOPES = {"FeatureExtractor": "fe", "PositionalConvEmbedding": "pos_conv",
-                "Encoder": "encoder"}
 ATTENTION = "attention"
 STEP_SCOPES = {"train_step": "attack.step", "eval_step": "attack.eval_step"}
 SCORING = "loop.scoring"
 WINDOW = "portbench.window"
-LABELS = frozenset([*MODEL_SCOPES.values(), ATTENTION, *STEP_SCOPES.values(), SCORING])
+HARNESS_LABELS = frozenset([ATTENTION, *STEP_SCOPES.values(), SCORING])
 OUTSIDE = "outside"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -50,11 +54,18 @@ def _ranged(fn, label: str):
     return wrapped
 
 
+def labels(family) -> frozenset:
+    """Every scope's label: the family's model scopes (``family`` is its
+    ``families/<family>.py``) and the harness's own (attention, the steps
+    and the scoring)."""
+    return HARNESS_LABELS | frozenset(family.SCOPES.values())
+
+
 @contextlib.contextmanager
-def scopes(runner):
+def scopes(runner, family):
     """Open the benchmark's scopes on ``runner``'s model, steps and loop
-    for the duration of the block."""
-    from paa_tpu_torch.models import wav2vec2 as program_model
+    for the duration of the block; the model's as ``family`` (its
+    ``families/<family>.py``) lays them out."""
     from paa_tpu_torch.train import loop as program_loop
 
     handles, open_ranges = [], []
@@ -70,14 +81,16 @@ def scopes(runner):
         open_ranges.pop().__exit__(None, None, None)
 
     for module in runner.model.modules():
-        label = MODEL_SCOPES.get(type(module).__name__)
+        label = family.SCOPES.get(type(module).__name__)
         if label is not None:
             handles.append(module.register_forward_pre_hook(enter(label)))
             handles.append(module.register_forward_hook(leave))
-    saved_attention = program_model.attention
+    models = [importlib.import_module(m) for m in family.ATTENTION_MODULES]
+    saved_attention = [m.attention for m in models]
     saved_scores = program_loop._scores
     saved_steps = {name: getattr(runner, name) for name in STEP_SCOPES}
-    program_model.attention = _ranged(saved_attention, ATTENTION)
+    for m, fn in zip(models, saved_attention):
+        m.attention = _ranged(fn, ATTENTION)
     program_loop._scores = _ranged(saved_scores, SCORING)
     for name, label in STEP_SCOPES.items():
         setattr(runner, name, _ranged(saved_steps[name], label))
@@ -86,7 +99,8 @@ def scopes(runner):
     finally:
         for h in handles:
             h.remove()
-        program_model.attention = saved_attention
+        for m, fn in zip(models, saved_attention):
+            m.attention = fn
         program_loop._scores = saved_scores
         for name, fn in saved_steps.items():
             setattr(runner, name, fn)
@@ -156,65 +170,23 @@ def _chains(events: list) -> tuple[dict, dict]:
     return chains, cpu
 
 
-def _forward_scopes(cpu: dict) -> dict:
-    """Sequence number → innermost scope of the forward operation that made
-    that autograd node. An operation records the number the next node will
-    take, so the last to record it (by start) made it; only threads that
-    enter a scope count."""
-    fwd = {}
-    for evs in cpu.values():
-        if not any(e["name"] in LABELS for e in evs):
-            continue
-        stack = []
-        for e in evs:
-            while stack and stack[-1]["ts"] + stack[-1]["dur"] < e["ts"]:
-                stack.pop()
-            seq = e.get("args", {}).get("Sequence number")
-            if (seq is not None and "evaluate_function" not in e["name"]
-                    and not any("evaluate_function" in s["name"] for s in stack)):
-                fwd[seq] = next((s["name"] for s in reversed(stack) if s["name"] in LABELS),
-                                OUTSIDE)
-            stack.append(e)
-    return fwd
-
-
-def summarize(events: list, top: int = 10) -> dict:
+def summarize(events: list, labels: frozenset = HARNESS_LABELS, top: int = 10) -> dict:
     """The traced window's numbers: ``window_s``, ``busy_s`` (the union of
     device operations inside it), ``device_ops`` (count), ``scope_ms``
-    (device ms charged to each scope, adding up to ``busy_s``) and
-    ``breakdown``."""
-    windows = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == WINDOW]
-    if not windows:
-        raise RuntimeError("the trace has no window scope")
-    w = max(windows, key=lambda e: e["dur"])
+    (device ms charged to each of ``labels``, or ``outside``, adding up to
+    ``busy_s``; by default the harness's own scopes, :func:`labels` adds a
+    family's) and ``breakdown``."""
+    from portbench import spans
+
+    w = spans.window(events)
     w0, w1 = w["ts"], w["ts"] + w["dur"]
     device = [e for e in events if e.get("cat") in DEVICE_CATS
               and e["ts"] < w1 and e["ts"] + e["dur"] > w0]
     busy = _merge((max(e["ts"], w0), min(e["ts"] + e["dur"], w1)) for e in device)
-    chains, cpu = _chains(events)
-    fwd = _forward_scopes(cpu)
-
-    def scope(chain) -> str:
-        for e in reversed(chain):
-            if e["name"] in LABELS:
-                return e["name"]
-            if "evaluate_function" in e["name"]:
-                return fwd.get(e.get("args", {}).get("Sequence number"), OUTSIDE)
-        return OUTSIDE
-
-    # each instant of device activity is charged once, to the operation that
-    # started first among those running: Hopper's library kernels launch
-    # early and overlap their predecessor, so their durations sum to more
-    # than the busy time
     scope_ms = collections.Counter()
     by_name = collections.Counter()
-    edge = w0
-    for e in sorted(device, key=lambda e: e["ts"]):
-        a, b = max(e["ts"], edge), min(e["ts"] + e["dur"], w1)
-        if b <= a:
-            continue
-        edge = b
-        scope_ms[scope(chains.get(e.get("args", {}).get("correlation"), []))] += (b - a) / 1e3
+    for label, e, a, b in spans.charge(events, labels.__contains__, w0, w1):
+        scope_ms[label] += (b - a) / 1e3
         by_name[e["name"][:120]] += (b - a) / 1e6
     gaps = []
     edge = w0
@@ -222,7 +194,9 @@ def summarize(events: list, top: int = 10) -> dict:
         if a > edge:
             gaps.append((a - edge, edge, a))
         edge = max(edge, b)
-    host = _HostClock(cpu.get(w["tid"], []))
+    main = sorted((e for e in events if e.get("cat") in ("cpu_op", "user_annotation")
+                   and e["tid"] == w["tid"]), key=lambda e: (e["ts"], -e["dur"]))
+    host = _HostClock(main, labels)
     named = collections.Counter()
     for length, a, b in sorted(gaps, reverse=True)[:200]:
         named[host.name((a + b) / 2)] += length / 1e6
@@ -240,10 +214,10 @@ class _HostClock:
     """What the main thread was doing at a time: the benchmark's innermost
     scope and the innermost operation."""
 
-    def __init__(self, evs: list):
+    def __init__(self, evs: list, labels: frozenset):
         self.ops = [e for e in evs if e.get("cat") == "cpu_op"]
         self.starts = [e["ts"] for e in self.ops]
-        self.scopes = [e for e in evs if e["name"] in LABELS]
+        self.scopes = [e for e in evs if e["name"] in labels]
 
     def name(self, t: float) -> str:
         scope = None
