@@ -42,6 +42,7 @@ import logging
 
 from paa_tpu_torch.config import AttackConfig, ConstraintParams
 from paa_tpu_torch.data import datasets, pipeline as pipeline_lib
+from paa_tpu_torch.models import presets
 
 
 def create_arg_parser() -> argparse.ArgumentParser:
@@ -113,8 +114,7 @@ def create_arg_parser() -> argparse.ArgumentParser:
 
     # model and device
     parser.add_argument("--model", type=str, default="wav2vec2-base",
-                        choices=["wav2vec2-base", "wav2vec2-large-lv60", "wav2vec2-tiny"],
-                        help="frozen ASR target")
+                        choices=sorted(presets.PRESETS), help="frozen ASR target")
     parser.add_argument("--checkpoint_path", type=str, default=None,
                         help="local model.safetensors / pytorch_model.bin with the frozen "
                              "model's weights in HF names; without it the weights are drawn "

@@ -35,7 +35,7 @@ from paa_tpu_torch import runtime
 from paa_tpu_torch.parallel import mesh as mesh_lib
 from paa_tpu_torch.cli import parser as parser_lib
 from paa_tpu_torch.config import SWEEP_ARG
-from paa_tpu_torch.models import checkpoint_io, hf_cache, wav2vec2
+from paa_tpu_torch.models import checkpoint_io, hf_cache, presets
 from paa_tpu_torch.train import checkpoint, loop
 
 
@@ -54,8 +54,9 @@ def select_device(platform: str) -> torch.device:
     return runtime.require_cuda() if platform == "cuda" else torch.device("cpu")
 
 
-def load_model(args, device: torch.device) -> wav2vec2.Wav2Vec2ForCTC:
-    """The frozen Wav2Vec2-CTC on ``device``. Weight sources, in the
+def load_model(args, device: torch.device) -> torch.nn.Module:
+    """The frozen CTC model of preset ``--model`` (``models/presets.py``) on
+    ``device``. Weight sources, in the
     reference's order (``paa_tpu/cli/run_attack.py`` ``load_model_bundle``):
 
       1. ``--checkpoint_path``: a local HF ``model.safetensors`` or
@@ -71,12 +72,12 @@ def load_model(args, device: torch.device) -> wav2vec2.Wav2Vec2ForCTC:
     log = logging.getLogger("paa_tpu")
     overrides = {"do_normalize": False} if args.no_input_normalize else {}
     remat, remat_policy = parser_lib.resolve_remat(args)
-    mcfg = wav2vec2.get_config(args.model, compute_dtype=args.compute_dtype,
-                               fe_gelu=args.fe_gelu, conv_impl=args.conv_impl, remat=remat,
-                               remat_policy=remat_policy, **overrides)
+    mcfg = presets.get_config(args.model, compute_dtype=args.compute_dtype,
+                              fe_gelu=args.fe_gelu, conv_impl=args.conv_impl, remat=remat,
+                              remat_policy=remat_policy, **overrides)
 
-    def from_state_dict(sd: dict) -> wav2vec2.Wav2Vec2ForCTC:
-        model = wav2vec2.Wav2Vec2ForCTC(mcfg)
+    def from_state_dict(sd: dict) -> torch.nn.Module:
+        model = presets.build(mcfg)
         model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
         return model.requires_grad_(False).eval()
 
@@ -93,7 +94,7 @@ def load_model(args, device: torch.device) -> wav2vec2.Wav2Vec2ForCTC:
             log.warning("pretrained weights unavailable (%s); using random init", e)
     if model is None:
         log.info("%s weights drawn at random from --seed %d", args.model, args.seed)
-        model = wav2vec2.init_model(mcfg, seed=args.seed)
+        model = presets.init_model(mcfg, seed=args.seed)
     storage = args.param_storage or args.compute_dtype
     if storage != "float32":
         model.cast_param_storage(getattr(torch, storage))

@@ -27,6 +27,7 @@ from paa_tpu_torch.models import checkpoint_io
 HF_REPOS = {
     "wav2vec2-base": "facebook/wav2vec2-base-960h",
     "wav2vec2-large-lv60": "facebook/wav2vec2-large-960h-lv60-self",
+    "wav2vec2-conformer-rope-large": "facebook/wav2vec2-conformer-rope-large-960h-ft",
 }
 WEIGHT_FILES = ("model.safetensors", "pytorch_model.bin")
 

@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+from typing import ClassVar, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +62,9 @@ from paa_tpu_torch.spans import span
 @dataclasses.dataclass(frozen=True)
 class Wav2Vec2Config:
     """Architecture hyperparameters (HF field meanings)."""
+
+    # the model family the preset belongs to (``models/presets.py`` builds by it)
+    family: ClassVar[str] = "wav2vec2"
 
     vocab_size: int = 32
     hidden_size: int = 768
@@ -574,6 +577,16 @@ class PositionalConvEmbedding(nn.Module):
             return positional_conv(x, c.weight.to(dt), c.bias.to(dt))
 
 
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:
+    """Softmax attention of ``(B, T, heads·d)`` q (scaled), k and v through
+    the attention kernels (K1/K2 on a CUDA tensor), ``(B, T, heads·d)``."""
+    B, T, width = q.shape
+    split = lambda t: t.view(B, T, heads, width // heads)
+    with span("paa.attention"):
+        ctx = attention(split(q), split(k), split(v))
+    return ctx.reshape(B, T, width)
+
+
 class SelfAttention(nn.Module):
     """Self-attention; under tensor parallelism (``axis``) this rank's
     ``heads / tp`` heads, with the branch's collectives of ``parallel/tp.py``
@@ -605,32 +618,30 @@ class SelfAttention(nn.Module):
         return F.linear(x, w.to(dt), b.to(dt)).split(self.heads * self.head_dim, dim=-1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, H)
-        B, T, _ = x.shape
         dt = x.dtype
         if self.axis is not None:
             x = tp.copy_to_model(x, self.axis)
-        split = lambda t: t.view(B, T, self.heads, self.head_dim)
         if self.fused:
             q, k, v = self._fused_qkv(x)
         else:
             q = _linear(x, self.q_proj, dt) * self.scale
             k = _linear(x, self.k_proj, dt)
             v = _linear(x, self.v_proj, dt)
-        with span("paa.attention"):
-            ctx = attention(split(q), split(k), split(v))
-        ctx = ctx.reshape(B, T, self.heads * self.head_dim)
+        ctx = attend(q, k, v, self.heads)
         if self.axis is not None:
             return tp.row_parallel(ctx, self.out_proj, self.axis, dt)
         return _linear(ctx, self.out_proj, dt)
 
 
 class FeedForward(nn.Module):
-    """The FFN; under tensor parallelism this rank's ``intermediate_size /
-    tp`` columns. With ``remat_ffn`` it runs as ``_FFNFn``; under the
-    ``save_cheap`` policy the hidden and its GELU are one checkpoint, which
-    keeps the FFN's input in place of the hidden."""
+    """The FFN, its activation ``act`` the erf GELU (wav2vec2) or SiLU (the
+    conformer, whose config refuses remat); under tensor parallelism this
+    rank's ``intermediate_size / tp`` columns. With ``remat_ffn`` it runs as
+    ``_FFNFn``; under the ``save_cheap`` policy the hidden and its GELU are
+    one checkpoint, which keeps the FFN's input in place of the hidden."""
 
-    def __init__(self, cfg: Wav2Vec2Config, axis: tp.ModelAxis | None = None):
+    def __init__(self, cfg: Wav2Vec2Config, axis: tp.ModelAxis | None = None,
+                 act: str = "gelu"):
         super().__init__()
         n = axis.size if axis is not None else 1
         self.axis = axis
@@ -638,9 +649,12 @@ class FeedForward(nn.Module):
         self.output_dense = nn.Linear(cfg.intermediate_size // n, cfg.hidden_size)
         self.lean = cfg.remat_ffn
         self.recompute_hidden = cfg.remat and cfg.remat_policy == "save_cheap"
+        self.silu = act == "silu"
 
     def _hidden(self, y: torch.Tensor) -> torch.Tensor:
-        return _GeluFn.apply(_linear(y, self.intermediate_dense, y.dtype))
+        h = _linear(y, self.intermediate_dense, y.dtype)
+        # torch's SiLU keeps only its input for the backward, as _GeluFn does
+        return F.silu(h) if self.silu else _GeluFn.apply(h)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
@@ -735,6 +749,12 @@ class Wav2Vec2Model(nn.Module):
         return self.encoder(x)
 
 
+def normalize_audio(audio: torch.Tensor) -> torch.Tensor:
+    """Each row at zero mean and unit (population) variance, in float32."""
+    var, mu = torch.var_mean(audio, dim=-1, correction=0, keepdim=True)
+    return (audio - mu) * torch.rsqrt(var + 1e-7)
+
+
 class Wav2Vec2ForCTC(nn.Module):
     """Raw waveform ``(B, T)`` → CTC logits ``(B, frames, vocab)`` float32.
 
@@ -750,9 +770,8 @@ class Wav2Vec2ForCTC(nn.Module):
         self._register_load_state_dict_pre_hook(_hf_compat)
 
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
-        if self.cfg.do_normalize:  # per row, population variance, in f32
-            var, mu = torch.var_mean(audio, dim=-1, correction=0, keepdim=True)
-            audio = (audio - mu) * torch.rsqrt(var + 1e-7)
+        if self.cfg.do_normalize:
+            audio = normalize_audio(audio)
         x = self.wav2vec2(audio)
         return F.linear(x.float(), self.lm_head.weight, self.lm_head.bias)
 
@@ -787,11 +806,18 @@ def _hf_compat(state_dict, prefix, *_args):
 
 
 def init_model(cfg: Wav2Vec2Config, seed: int = 0) -> Wav2Vec2ForCTC:
-    """Random-init model from an explicit generator, on the CPU: matmul and
-    conv weights lecun-normal (std = fan_in^-½), biases 0, norms 1/0, the
-    positional conv's direction N(0, 0.02) and its gains 1 (the reference's
-    initializers, untruncated)."""
-    model = Wav2Vec2ForCTC(cfg)
+    """Random-init model from an explicit generator, on the CPU
+    (:func:`init_weights`)."""
+    return init_weights(Wav2Vec2ForCTC(cfg), seed)
+
+
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """``model``'s parameters drawn from an explicit generator, in the order
+    of ``named_parameters``: matmul and conv weights lecun-normal (std =
+    fan_in^-½), biases 0, norms 1/0, the positional conv's direction N(0,
+    0.02) and its gains 1 (the reference's initializers, untruncated);
+    buffers (a BatchNorm's running mean 0 and variance 1) as built. The
+    model frozen, in eval mode."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():

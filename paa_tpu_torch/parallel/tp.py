@@ -53,6 +53,9 @@ def check_model_axis(mcfg, n_model: int) -> None:
     sharded dimensions (attention heads and FFN hidden)."""
     if n_model <= 1:
         return
+    if mcfg.family != "wav2vec2":  # the Megatron layout below is wav2vec2's
+        raise ValueError(f"tensor-parallel size {n_model}: the {mcfg.family} family has no "
+                         "tensor-parallel layout")
     if mcfg.num_attention_heads % n_model != 0:
         raise ValueError(
             f"tensor-parallel size {n_model} must divide "

@@ -18,8 +18,10 @@ SPANS = (
     "paa.feed",  # forming a batch on the device
     "paa.fe",  # FeatureExtractor.forward
     "paa.pos_conv",  # PositionalConvEmbedding.forward, inside paa.encoder
-    "paa.encoder",  # Encoder.forward
+    "paa.encoder",  # Encoder.forward, ConformerEncoder.forward
     "paa.attention",  # the model's call into the attention kernels
+    "paa.conv_module",  # ConvolutionModule.forward, inside paa.encoder (the conformer)
+    "paa.dwconv",  # inside paa.conv_module: the depthwise conv call
     "paa.ctc",  # the CTC loss of a microbatch or an eval batch
     "paa.update",  # the optimizer update and the projection of a step
     "paa.score",  # the host's scoring of an epoch's or a pass's batches

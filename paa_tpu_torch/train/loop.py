@@ -44,7 +44,7 @@ from paa_tpu_torch.train import artifacts, log_helpers, scoring
 from paa_tpu_torch.attack import optimizers, step as attack_step
 from paa_tpu_torch.config import AttackConfig, ConstraintParams, attack_size_value
 from paa_tpu_torch.data import pipeline as pipeline_lib
-from paa_tpu_torch.models import wav2vec2
+from paa_tpu_torch.models import presets
 from paa_tpu_torch.ops import projections, psycho
 from paa_tpu_torch.parallel import mesh as mesh_lib, tp as tp_lib
 from paa_tpu_torch.spans import span
@@ -71,7 +71,7 @@ def _targeted_labels(cfg: AttackConfig, batch_size: int, label_len: int,
         text_ops.targeted_texts(cfg.target, cfg.target_reps, batch_size))
     labels, paddings = text_ops.encode_batch(texts, pad_to=label_len)
     if audio_len is not None:
-        frames = wav2vec2.get_config(cfg.model_name).feat_extract_output_length(audio_len)
+        frames = presets.get_config(cfg.model_name).feat_extract_output_length(audio_len)
         row = labels[0][paddings[0] < 0.5]
         need = len(row) + int(np.sum(row[1:] == row[:-1]))
         if need > frames:
@@ -184,7 +184,7 @@ class AttackRunner:
                  mesh="auto", corpora: pipeline_lib.CorpusCache | None = None):
         if isinstance(mesh, str):
             if cfg.tp > 1:
-                tp_lib.check_model_axis(wav2vec2.get_config(cfg.model_name), cfg.tp)
+                tp_lib.check_model_axis(presets.get_config(cfg.model_name), cfg.tp)
             mesh = mesh_lib.decide_mesh(cfg.tp, cfg.batch_size)
         self.mesh = mesh
         self.cfg = cfg

@@ -39,6 +39,10 @@ def _runner(model, pipe, accum_steps=1, device_cache=None):
     return loop.AttackRunner(cfg, model, pipe, mesh=None)
 
 
+# opened only by the conformer's conv module, which the tiny wav2vec2 lacks
+CONFORMER_SPANS = {"paa.conv_module", "paa.dwconv"}
+
+
 def _epoch(runner):
     """One epoch of PGD, which keeps no optimizer state."""
     runner.train_epoch(runner.init_perturbation(0), None, 0, np.random.default_rng(0))
@@ -94,10 +98,11 @@ def test_evaluate_spans(model, pipe, device_cache):
 
 
 def test_every_span_is_emitted(model, pipe):
+    """Every span but the conformer's own (``tests/test_torch_conformer.py``)."""
     runner = _runner(model, pipe)
     got = _counts(lambda: (_epoch(runner),
                            runner.evaluate(pipe.eval, runner.init_perturbation(0), True)))
-    assert set(got) == set(spans.SPANS)
+    assert set(got) == set(spans.SPANS) - CONFORMER_SPANS
 
 
 def test_spans_nest_as_the_model_does(model, pipe):
@@ -133,4 +138,4 @@ def test_run_attack_profile_holds_every_span(tmp_path):
     trace = pathlib.Path(run_attack.make_save_dir(args)) / "profile" / "trace.json"
     names = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]
              if e.get("cat") == "user_annotation"}
-    assert set(spans.SPANS) <= names
+    assert set(spans.SPANS) - CONFORMER_SPANS <= names
