@@ -180,7 +180,7 @@ from paa_tpu_torch.config import AttackConfig, ConstraintParams
 from paa_tpu_torch.data import pipeline, synthetic
 from paa_tpu_torch.models import checkpoint_io, wav2vec2
 from paa_tpu_torch.ops import dsp, psycho, text
-from paa_tpu_torch.ops.kernels import _lib, attention, fm_norm, pos_conv
+from paa_tpu_torch.ops.kernels import _lib, attention, fe_norm, fm_norm, pos_conv
 from paa_tpu_torch.parallel import mesh as mesh_lib, tp as tp_lib
 from paa_tpu_torch.train import pretrain
 
@@ -200,6 +200,10 @@ ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_ABS_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
 FM_TOL = 1e-5  # float32 sum of positive terms in another order
 POS_CONV_TOL = 2e-2  # K5: bf16 outputs, as ATTN_TOL's
+# K6, as max |kernel − plain| / max |plain| against the plain version in
+# float32 on the same bf16 values: each output is rounded once to bf16, so it
+# lies within one bf16 step (2^-8) of the output's scale
+FE_NORM_TOL = 2.0**-8
 
 # The H100 SXM's published peaks (dense), for the bounds: bf16 on the tensor
 # cores, float32 outside them, and device memory.
@@ -468,6 +472,140 @@ def check_pos_conv(B, T, H, Cg, K, dev, iters=10) -> dict:
     return out
 
 
+def check_fe_norm(B, C, T, dev, iters=10, more=False) -> dict:
+    """K6's forward (with the statistics, as under grad) and backward against
+    the plain version in float32 on the same bf16 values, their bits on a
+    repeat and one launch a call; each direction's ms, its device ms (a CUDA
+    graph of 20 calls), its byte bound (4 B a value forward, 6 B backward,
+    the statistics' 8 B a frame), the plain version's ms in bf16 (the layer
+    before K6) and the library's: ``F.layer_norm`` on the (B, T, C) view and
+    ``F.gelu``, and its autograd backward alone. With ``more``, also
+    (fe_norm_more) the backward with the weight gradients and the (B, T, C)
+    layout of the conv lowerings each way."""
+    g = torch.Generator(device=dev).manual_seed(T * 7 + C)
+    y = (torch.randn((B, C, T), generator=g, device=dev) * 2 + 0.3).to(torch.bfloat16)
+    dout = torch.randn((B, C, T), generator=g, device=dev).to(torch.bfloat16)
+    params = [torch.randn(C, generator=g, device=dev) * 0.3,
+              1 + torch.randn(C, generator=g, device=dev) * 0.2,
+              torch.randn(C, generator=g, device=dev) * 0.2]
+    eps = 1e-5
+    fwd = lambda: fe_norm.fe_norm_fwd(y, *params, eps, True, stats=True)
+    _lib.reset_launches()
+    out_, mean, rstd = fwd()
+    bwd = lambda: fe_norm.fe_norm_bwd(dout, y, *params, mean, rstd, True, wgrad=False)
+    dx = bwd()[0]
+    launches = [_lib.launches["fe_norm"], _lib.launches["fe_norm_bwd"]]
+    torch.cuda.synchronize()
+    bits = torch.equal(fwd()[0], out_) and torch.equal(bwd()[0], dx)
+    yr = y.float().requires_grad_(True)
+    out_ref = fe_norm.fe_norm_gelu_plain(yr, *params, eps, True)
+    (dx_ref,) = torch.autograd.grad(out_ref, yr, dout.float())
+    out = {"phase": "kernels", "kernel": "fe_norm", "B": B, "C": C, "T": T, "dtype": "bfloat16",
+           "tol_rel": FE_NORM_TOL, "bits_repeat": bits, "launches_per_call": launches}
+    fail = [] if bits else ["bits"]
+    if launches != [1, 1]:
+        fail.append("launches")
+    for name, got, want in (("out", out_, out_ref), ("dx", dx, dx_ref)):
+        out[f"{name}_max_abs_err"], _ = rel_err(got, want)
+        out[f"{name}_rel_err"] = out[f"{name}_max_abs_err"] / float(want.abs().max())
+        if not out[f"{name}_rel_err"] <= FE_NORM_TOL:
+            fail.append(name)
+    del yr, out_ref, dx_ref
+    torch.cuda.empty_cache()
+
+    def autograd_pair(fn):
+        """(forward, its backward alone) of ``fn`` on a leaf copy of y."""
+        leaf = y.detach().requires_grad_(True)
+        held = fn(leaf)
+        return (lambda: fn(leaf),
+                lambda: torch.autograd.grad(held, leaf, dout, retain_graph=True))
+
+    plain = autograd_pair(lambda t: fe_norm.fe_norm_gelu_plain(t, *params, eps, True))
+    lib_params = [p.to(torch.bfloat16) for p in params]
+    library = autograd_pair(lambda t: torch.nn.functional.gelu(torch.nn.functional.layer_norm(
+        (t + lib_params[0][:, None]).transpose(1, 2), (C,), lib_params[1], lib_params[2], eps),
+        approximate="tanh").transpose(1, 2))
+    n, stats = B * C * T, 8 * B * T
+    for i, (direction, call, nbytes) in enumerate((("fwd", fwd, 4 * n + stats),
+                                                   ("bwd", bwd, 6 * n + stats))):
+        out[f"{direction}_ms"] = time_ms(call, iters)
+        out[f"{direction}_device_ms"] = fm_profile.graph_ms(call, 20)
+        out[f"{direction}_plain_ms"] = time_ms(plain[i], 2)
+        out[f"{direction}_library_ms"] = time_ms(library[i], 2)
+        ms, by = bound(0, nbytes, torch.bfloat16)
+        out[f"{direction}_bound_ms"], out[f"{direction}_bound_by"] = ms, by
+        out[f"{direction}_peak_share"] = ms / out[f"{direction}_device_ms"]
+    del plain, library
+    torch.cuda.empty_cache()
+    if more:
+        fail += fe_norm_more(out, y, dout, params, mean, rstd, eps)
+    out["failed"] = fail
+    emit(out)
+    return out
+
+
+def fe_norm_more(out: dict, y, dout, params, mean, rstd, eps) -> list:
+    """K6's backward with the weight gradients (pretraining): its device ms
+    and the device memory it holds above its inputs and output (the weight
+    gradients' rows, one a block), beside the backward without them; and
+    the (B, T, C) layout of the conv lowerings each way: error against the
+    plain version and device ms. Adds its numbers to ``out``; returns the
+    names of the checks that failed."""
+    fail = []
+    B, C, T = y.shape
+
+    def held(call) -> int:
+        """Device memory at the call's peak above the memory before it,
+        less its (B, C, T) result."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(y.device)
+        before = torch.cuda.memory_allocated(y.device)
+        res = call()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated(y.device) - before - res[0].nbytes
+        del res
+        return extra
+
+    wgrad = lambda: fe_norm.fe_norm_bwd(dout, y, *params, mean, rstd, True, wgrad=True)
+    bwd = lambda: fe_norm.fe_norm_bwd(dout, y, *params, mean, rstd, True, wgrad=False)
+    dx_w, dbias, dw, db = wgrad()
+    dx = bwd()[0]
+    leaves = [y.float().requires_grad_(True)] + [p.clone().requires_grad_(True) for p in params]
+    want = torch.autograd.grad(fe_norm.fe_norm_gelu_plain(leaves[0], *leaves[1:], eps, True),
+                               leaves, dout.float())
+    errs = {name: float((a - b).abs().max() / b.abs().max())
+            for name, a, b in zip(("bias", "weight", "bias_ln"), (dbias, dw, db), want[1:])}
+    del leaves, want
+    out.update(wgrad_bwd_device_ms=fm_profile.graph_ms(wgrad, 20),
+               wgrad_bwd_held_bytes=held(wgrad), bwd_held_bytes=held(bwd),
+               wgrad_blocks=fe_norm.wgrad_blocks(y, 1), wgrad_rel_err=errs,
+               wgrad_dx_equal=torch.equal(dx_w, dx))
+    if not (max(errs.values()) <= FE_NORM_TOL and out["wgrad_dx_equal"]):
+        fail.append("wgrad")
+    # the (B, T, C) layout: the same values transposed
+    yt, dt = (t.transpose(1, 2).contiguous() for t in (y, dout))
+    fwd_t = lambda: fe_norm.fe_norm_fwd(yt, *params, eps, True, stats=True, dim=2)
+    out_t, mean_t, rstd_t = fwd_t()
+    bwd_t = lambda: fe_norm.fe_norm_bwd(dt, yt, *params, mean_t, rstd_t, True, False, dim=2)
+    dx_t = bwd_t()[0]
+    yr = yt.float().requires_grad_(True)
+    ref = fe_norm.fe_norm_gelu_plain(yr, *params, eps, True, 2)
+    (dx_ref,) = torch.autograd.grad(ref, yr, dt.float())
+    for name, got, want in (("out", out_t, ref), ("dx", dx_t, dx_ref)):
+        out[f"btc_{name}_rel_err"] = float((got.float() - want).abs().max() / want.abs().max())
+        if not out[f"btc_{name}_rel_err"] <= FE_NORM_TOL:
+            fail.append(f"btc_{name}")
+    del yr, ref, dx_ref
+    n, stats = B * C * T, 8 * B * T
+    for direction, call, nbytes in (("fwd", fwd_t, 4 * n + stats), ("bwd", bwd_t, 6 * n + stats)):
+        out[f"btc_{direction}_device_ms"] = fm_profile.graph_ms(call, 20)
+        out[f"btc_{direction}_peak_share"] = (bound(0, nbytes, torch.bfloat16)[0]
+                                              / out[f"btc_{direction}_device_ms"])
+    del yt, dt, out_t, dx_t
+    torch.cuda.empty_cache()
+    return fail
+
+
 def phase_kernels(dev) -> dict:
     """Every check runs; the phase fails after them if any was out of
     tolerance. Returns the checks at the main path's shapes."""
@@ -506,6 +644,12 @@ def phase_kernels(dev) -> dict:
     at_main["pos_conv_long"] = check_pos_conv(LV60_B // LV60_ACCUM, 999, 1024, 64, 128, dev)
     results.append(check_pos_conv(32, 152, 64, 16, 16, dev))
     results.append(check_pos_conv(2, 130, 768, 48, 128, dev))
+    # K6 at lv60's layer 0 (also with weight gradients, and on (B, T, C)) and
+    # layer 6 for one microbatch of 20 s clips, a C other than 512 and T = 1
+    at_main["fe_norm_l0"] = check_fe_norm(LV60_B // LV60_ACCUM, 512, 63_999, dev, more=True)
+    at_main["fe_norm_l6"] = check_fe_norm(LV60_B // LV60_ACCUM, 512, 999, dev)
+    results.append(check_fe_norm(4, 264, 777, dev))
+    results.append(check_fe_norm(3, 512, 1, dev))
     at_main["fm_norm_lv60"] = check_fm(spec_lv60, tables, "lv60")
     results.append(check_fm(spec_main.contiguous(), tables, "main_path_contiguous"))
     results.append(check_fm(spec_lv60.contiguous(), tables, "lv60_contiguous"))
@@ -624,6 +768,22 @@ def full_width_batch(B: int, T: int, dev) -> list:
     return [audio, labels, pads, torch.ones(B, device=dev)]
 
 
+def fe_layers(mcfg) -> int:
+    """Feature-extractor layers that launch K6 in one forward on the card:
+    every layer of a LayerNorm feature extractor, in any compute dtype and
+    under any conv lowering, none at base."""
+    return len(mcfg.conv_dim) if mcfg.feat_extract_norm == "layer" else 0
+
+
+def fe_step(mcfg, accum: int) -> dict:
+    """K6's launches in a train step of ``accum`` microbatches: each layer
+    once each way a microbatch, its forward twice under feature-extractor
+    remat (the checkpoint runs it again in the backward)."""
+    fe = fe_layers(mcfg)
+    return {"fe_norm": fe * accum * (2 if mcfg.remat_feature_extractor else 1),
+            "fe_norm_bwd": fe * accum}
+
+
 def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
                      timed_steps: int, card: str, model=None, grad: bool = False) -> dict:
     """One attack configuration at full width: random weights from SEED (or
@@ -654,10 +814,11 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
     # per train step: every layer forward and backward in each microbatch,
     # one projection; the eval step is one forward pass over the batch
     # (bf16, head dim 64: the wgmma route of K1/K2); the positional conv
-    # once each way a microbatch, through K5 in bf16
+    # once each way a microbatch, through K5 in bf16; lv60's feature
+    # extractor through K6 (fe_step)
     pc = int(mcfg.compute_dtype == "bfloat16")
     per_step = counts(attention_fwd_sm90=k1 * L * accum, attention_bwd_sm90=L * accum, fm_norm=1,
-                      pos_conv=pc * accum, pos_conv_dgrad=pc * accum)
+                      pos_conv=pc * accum, pos_conv_dgrad=pc * accum, **fe_step(mcfg, accum))
     times = lambda n: {k: v * n for k, v in per_step.items()}
     torch.cuda.reset_peak_memory_stats(dev)
     _lib.reset_launches()
@@ -681,7 +842,8 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
     eval_loss = float(e.ctc_loss)
     launches = dict(_lib.launches)
     want = {**times(n), "attention_fwd_sm90": times(n)["attention_fwd_sm90"] + L,
-            "pos_conv": times(n)["pos_conv"] + pc}
+            "pos_conv": times(n)["pos_conv"] + pc,
+            "fe_norm": times(n)["fe_norm"] + fe_layers(mcfg)}
     check(launches == want, f"{phase}: eval step launched {launches}, want {want}")
     peak = torch.cuda.max_memory_allocated(dev)
     p_abs = float(p.abs().max())
@@ -790,9 +952,12 @@ def expected_cli_launches(argv: list[str], facts: dict, fm: bool, route: str,
     each cell's initial perturbation is projected once. ``route`` is the
     suffix of the attention counters ("" for the register route, "_sm90" for wgmma).
     Each forward runs the positional conv once and each backward its input
-    gradient, through K5 under the bf16 compute dtype."""
+    gradient, through K5 under the bf16 compute dtype, and lv60's feature
+    extractor K6 once a layer each way (no CLI flag turns on its remat)."""
     args = parser.create_arg_parser().parse_known_args(argv)[0]
     pc = int(args.compute_dtype == "bfloat16")
+    fe = fe_layers(wav2vec2.get_config(args.model, compute_dtype=args.compute_dtype,
+                                       conv_impl=args.conv_impl))
     A = args.accum_steps
     L = wav2vec2.get_config(args.model).num_hidden_layers
     nb = lambda n: math.ceil(n / args.batch_size)
@@ -801,7 +966,8 @@ def expected_cli_launches(argv: list[str], facts: dict, fm: bool, route: str,
     return counts(**{f"attention_fwd{route}": L * (A * steps + evals),
                      f"attention_bwd{route}": L * A * steps,
                      "fm_norm": (steps + cells) if fm else 0,
-                     "pos_conv": pc * (A * steps + evals), "pos_conv_dgrad": pc * A * steps})
+                     "pos_conv": pc * (A * steps + evals), "pos_conv_dgrad": pc * A * steps,
+                     "fe_norm": fe * (A * steps + evals), "fe_norm_bwd": fe * A * steps})
 
 
 def phase_cli(card: str) -> dict:
@@ -1818,7 +1984,7 @@ def phase_lowerings(dev, card: str, main: dict, lv60: dict, anchor: dict) -> dic
         name = f"lowering_lv60_{impl}"
         model = conv_ab.with_config(lv60["model"], conv_impl=impl)
         run = lowering_run(dev, name, "wav2vec2-large-lv60", LV60_B, LV60_T, LV60_ACCUM, card,
-                           model, ref, lv60["per_step"])
+                           model, ref, {**lv60["per_step"], **fe_step(model.cfg, LV60_ACCUM)})
         if ref is None:
             check(run["first_loss"] == lv60["first_loss"],
                   f"lowerings: conv's first loss {run['first_loss']} against phase 5's "
@@ -1864,6 +2030,8 @@ K2_TPU = "paa_tpu/ops/pallas/attention.py:133 (_bwd_kernel, via _attend_bwd :218
 K4_TPU = "paa_tpu/models/wav2vec2.py:766 (_flash_attention, stock Pallas flash_attention, {})"
 K3_TPU = "paa_tpu/ops/pallas/fm_norm.py:40 (_kernel, via fm_weighted_power_sum :61)"
 K5_TPU = "none: paa_tpu/models/wav2vec2.py:535-573 runs lax.conv_general_dilated"
+K6_TPU = ("none: paa_tpu/models/wav2vec2.py:445-456 runs the bias add, _FeNorm (:475) and "
+          "nn.gelu as jnp operations, which XLA fuses")
 REMAT_NAMES = tuple(name for name, _ in REMAT_RUNS)  # phase 11 (a), at phase 5's shapes
 # phase 12 (a) and (d), at phase 4's shapes; (b), at phase 5's
 LOWERING_BASE_NAMES = tuple(f"lowering_base_{impl}" for impl in CONV_IMPLS) + ("fused_qkv",)
@@ -1935,6 +2103,12 @@ KERNELS = (
      ("lv60",) + REMAT_NAMES + LOWERING_LV60_NAMES, "pos_conv_long", "fwd"),
     ("pos_conv_dgrad_long", "pos_conv_dgrad", "paa_tpu_torch/csrc/pos_conv.cu", K5_TPU,
      ("lv60",) + REMAT_NAMES + LOWERING_LV60_NAMES, "pos_conv_long", "dgrad"),
+    # K6 at lv60's layer 0 and layer 6 for one microbatch; every lv60 run
+    # launches it at all seven layers, the conv lowerings' on (B, T, C)
+    *((f"fe_norm_{d}_{layer}", counter, "paa_tpu_torch/csrc/fe_norm.cu", K6_TPU,
+       ("lv60",) + REMAT_NAMES + ("remat_a1", "cli_lv60", "cli_lv60_remat")
+       + LOWERING_LV60_NAMES, f"fe_norm_{layer}", d)
+      for layer in ("l0", "l6") for d, counter in (("fwd", "fe_norm"), ("bwd", "fe_norm_bwd"))),
 )
 
 
@@ -1944,6 +2118,13 @@ def kernel_row(check_out: dict, direction: str | None) -> dict:
         keys = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         return {k: check_out[k] for k in keys}
+    if check_out["kernel"] == "fe_norm":  # K6
+        return {"shape": [check_out[k] for k in ("B", "C", "T")], "dtype": check_out["dtype"],
+                "max_abs_err": check_out["out_max_abs_err" if direction == "fwd" else
+                                         "dx_max_abs_err"],
+                **{k: check_out[f"{direction}_{k}"] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "peak_share",
+                    "library_ms")}}
     if check_out["kernel"] == "pos_conv":  # K5
         err = (max(check_out["pre_max_abs_err"], check_out["out_max_abs_err"])
                if direction == "fwd" else check_out["dx_max_abs_err"])

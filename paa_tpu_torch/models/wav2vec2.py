@@ -12,9 +12,11 @@ tiny checkpoint and an HF ``Wav2Vec2ForCTC`` state dict load with
 Numerics follow the reference's placement:
   * matmuls and convs run in ``compute_dtype`` (bf16 for base, f32 for tiny);
   * the layer-0 GroupNorm and every LayerNorm take float32 statistics and
-    return the compute dtype; the feature extractor's per-layer LayerNorm
-    (``_FeNorm``) keeps only its compute-dtype input for the backward, never
-    a float32 copy of the layer;
+    return the compute dtype; the feature extractor's per-layer conv bias,
+    LayerNorm and GELU go through ``ops/kernels/fe_norm.py`` (K6 for a CUDA
+    tensor; on the CPU the bias add, ``_FeNorm`` and ``F.gelu``, whose norm
+    keeps only its compute-dtype input for the backward, never a float32
+    copy of the layer);
   * the feature extractor's convs run under one of five lowerings
     (``conv_impl``): cuDNN's conv on (B, C, T), or pairdot, im2col, tapdot
     or hybrid (cuDNN forward, ``_HybridConvFn``'s phase-matmul backward)
@@ -54,6 +56,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from paa_tpu_torch.ops.kernels.attention import attention
+from paa_tpu_torch.ops.kernels.fe_norm import bias_norm_gelu, fe_norm_gelu
 from paa_tpu_torch.ops.kernels.pos_conv import positional_conv
 from paa_tpu_torch.parallel import tp
 from paa_tpu_torch.spans import span
@@ -278,48 +281,6 @@ class _FFNFn(torch.autograd.Function):
         return dy, dik, dib, dok, dob
 
 
-class _FeNorm(torch.autograd.Function):
-    """The feature extractor's LayerNorm over the channel axis ``dim`` (1 of
-    a ``(B, C, T)`` activation, 2 of a ``(B, T, C)`` one): float32
-    statistics, output in the input's dtype (reference: ``_FeNorm``). The
-    backward keeps the input (in its own dtype) and the per-frame mean and
-    1/std, and recomputes the normalised value from them; stock autograd of
-    a float32 LayerNorm would keep a float32 copy of every
-    feature-extractor layer (the reference keeps it out of HBM the same
-    way)."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, eps: float, dim: int):
-        shape = [1] * x.dim()
-        shape[dim] = -1
-        xf = x.to(torch.float32, copy=True)
-        var, mu = torch.var_mean(xf, dim=dim, correction=0, keepdim=True)
-        rstd = torch.rsqrt(var + eps)
-        y = xf.sub_(mu).mul_(rstd).mul_(weight.view(shape)).add_(bias.view(shape)).to(x.dtype)
-        ctx.save_for_backward(x, mu, rstd, weight)
-        ctx.dim = dim
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        # in place where it can be: at 20 s and B=32 one float32 copy of
-        # layer 0 is 4.2 GB, and this keeps three of them alive at a time
-        x, mu, rstd, weight = ctx.saved_tensors
-        dim = ctx.dim
-        shape = [1] * x.dim()
-        shape[dim] = -1
-        others = tuple(d for d in range(x.dim()) if d != dim)
-        xhat = x.to(torch.float32, copy=True).sub_(mu).mul_(rstd)
-        gf = g.to(torch.float32, copy=True)
-        dw = (gf * xhat).sum(others) if ctx.needs_input_grad[1] else None
-        db = gf.sum(others) if ctx.needs_input_grad[2] else None
-        dxhat = gf.mul_(weight.view(shape))
-        m1 = dxhat.mean(dim, keepdim=True)
-        m2 = (dxhat * xhat).mean(dim, keepdim=True)
-        dx = dxhat.sub_(m1).sub_(xhat.mul_(m2)).mul_(rstd).to(x.dtype)
-        return dx, dw, db, None, None
-
-
 # ---------------------------------------------------------------------------
 # The conv lowerings (``Wav2Vec2Config.conv_impl``). Each takes x (B, T, C),
 # the nn.Conv1d weight (O, C, k) and the stride, and gives (B, T_out, O) of a
@@ -493,26 +454,27 @@ class ConvLayer(nn.Module):
         dt = x.dtype
         c = self.channel_dim
         x = feature_conv(self.impl, x, self.conv.weight.to(dt), self.stride)
-        if self.conv.bias is not None:  # added in the compute dtype after the conv
-            bias = self.conv.bias.to(dt)
-            x = x + (bias[:, None] if c == 1 else bias)
         n = self.layer_norm
-        if isinstance(n, nn.LayerNorm):
-            x = _FeNorm.apply(x, n.weight, n.bias, n.eps, c)
-        elif n is not None and c == 1:
-            x = F.group_norm(x.float(), n.num_groups, n.weight, n.bias, n.eps).to(dt)
-        elif n is not None:
-            # torch's GroupNorm on the (B, C, T) view: the float32 cast
-            # writes that layout, one more copy writes the result back in
-            # (B, T, C); eager passes over time (as _FeNorm's) would cost
-            # several times that at layer 0's size
-            xt = x.transpose(1, 2).to(torch.float32, memory_format=torch.contiguous_format)
-            x = F.group_norm(xt, n.num_groups, n.weight, n.bias, n.eps).to(dt)
-            x = x.transpose(1, 2).contiguous()
         # "auto": tanh GELU under bf16, where its error is below the cast's
         # own; exact erf under f32
         tanh = self.gelu == "tanh" or (self.gelu == "auto" and dt == torch.bfloat16)
-        return F.gelu(x, approximate="tanh" if tanh else "none")
+        if isinstance(n, nn.LayerNorm):  # bias, LayerNorm and GELU: K6 on the card
+            return fe_norm_gelu(x, self.conv.bias, n.weight, n.bias, n.eps, tanh, c)
+        # the bias is added in the compute dtype after the conv
+        return bias_norm_gelu(x, self.conv.bias, None if n is None else self._group_norm,
+                              tanh, c)
+
+    def _group_norm(self, x: torch.Tensor) -> torch.Tensor:
+        n, dt = self.layer_norm, x.dtype
+        if self.channel_dim == 1:
+            return F.group_norm(x.float(), n.num_groups, n.weight, n.bias, n.eps).to(dt)
+        # torch's GroupNorm on the (B, C, T) view: the float32 cast writes
+        # that layout, one more copy writes the result back in (B, T, C);
+        # eager passes over time (as _FeNorm's) would cost several times that
+        # at layer 0's size
+        xt = x.transpose(1, 2).to(torch.float32, memory_format=torch.contiguous_format)
+        x = F.group_norm(xt, n.num_groups, n.weight, n.bias, n.eps).to(dt)
+        return x.transpose(1, 2).contiguous()
 
 
 class FeatureExtractor(nn.Module):

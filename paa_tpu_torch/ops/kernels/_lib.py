@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paa_tpu_torch"
 SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "attention_fwd_sm90.cu",
-           "attention_bwd_sm90.cu", "fm_norm.cu", "pos_conv.cu")
+           "attention_bwd_sm90.cu", "fm_norm.cu", "pos_conv.cu", "fe_norm.cu")
 HEADERS = ("attention_common.cuh", "attention_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -37,11 +37,14 @@ NVCC_FLAGS = (
 # attention_fwd/_bwd: the register-route kernels (float32, and bf16 with head
 # dim 16);
 # attention_fwd_sm90/_bwd_sm90: the wgmma + TMA kernels (bf16, head dim 64);
-# pos_conv/_dgrad: the positional conv's forward and input gradient (bf16)
+# pos_conv/_dgrad: the positional conv's forward and input gradient (bf16);
+# fe_norm/_bwd: the feature extractor's bias + LayerNorm + GELU, forward and
+# backward (bf16 and float32, either layout)
 launches = {"attention_fwd": 0, "attention_bwd": 0, "attention_fwd_sm90": 0,
-            "attention_bwd_sm90": 0, "fm_norm": 0, "pos_conv": 0, "pos_conv_dgrad": 0}
+            "attention_bwd_sm90": 0, "fm_norm": 0, "pos_conv": 0, "pos_conv_dgrad": 0,
+            "fe_norm": 0, "fe_norm_bwd": 0}
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, B, T, H, D, is_bf16, stream
     "paa_attention_fwd": (_P,) * 5 + (_I,) * 5 + (_P,),
@@ -60,6 +63,12 @@ _SIGNATURES = {
     "paa_pos_conv_fwd": (_P,) * 5 + (_I,) * 5 + (_P,),
     # dpre, taps, dx, B, T, H, Cg, K, stream
     "paa_pos_conv_dgrad": (_P,) * 3 + (_I,) * 5 + (_P,),
+    # y, bias, gamma, beta, out, mean, rstd, B, C, T, eps, tanh, channels_last,
+    # is_bf16, stream
+    "paa_fe_norm_fwd": (_P,) * 7 + (_I,) * 3 + (_F, _I, _I, _I, _P),
+    # g, y, bias, gamma, beta, mean, rstd, dx, partial, grid, B, C, T, tanh,
+    # channels_last, is_bf16, stream
+    "paa_fe_norm_bwd": (_P,) * 9 + (_I,) * 7 + (_P,),
     "paa_error_string": (_I,),
 }
 

@@ -209,8 +209,9 @@ def test_fm_projection_goes_through_the_kernel(cuda):
 
 def test_lv60_flags_accumulated_step_on_the_card(cuda):
     """The lv60 flags on tiny widths, float32, A=2: the card's train step
-    launches K1/K2 once per layer in each microbatch and K3 once, and its
-    loss and new p match the CPU's plain path."""
+    launches K1/K2 once per layer in each microbatch, K3 once and K6 once
+    each way a feature-extractor layer in each microbatch, and its loss and
+    new p match the CPU's plain path."""
     from paa_tpu_torch.ops import text
     from paa_tpu_torch.attack import step
     from paa_tpu_torch.models import wav2vec2
@@ -235,10 +236,13 @@ def test_lv60_flags_accumulated_step_on_the_card(cuda):
     _lib.reset_launches()
     got_p, got_loss = run(cuda)
     L = mcfg.num_hidden_layers
-    # float32: the positional conv stays on the library's conv, K5 never runs
+    # float32: the positional conv stays on the library's conv, K5 never runs;
+    # the LayerNorm feature extractor runs K6 at each layer once each way a
+    # microbatch
+    fe = 2 * len(mcfg.conv_dim)
     assert _lib.launches == {"attention_fwd": 2 * L, "attention_bwd": 2 * L,
                              "attention_fwd_sm90": 0, "attention_bwd_sm90": 0, "fm_norm": 1,
-                             "pos_conv": 0, "pos_conv_dgrad": 0}
+                             "pos_conv": 0, "pos_conv_dgrad": 0, "fe_norm": fe, "fe_norm_bwd": fe}
     want_p, want_loss = run(torch.device("cpu"))
     assert abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
     # PGD takes the gradient's sign: a sign near 0 may flip (2·lr at most)

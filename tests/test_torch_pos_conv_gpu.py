@@ -158,5 +158,5 @@ def test_bf16_accumulated_step_launches_k5_once_a_microbatch(cuda):
     L = mcfg.num_hidden_layers
     assert _lib.launches == {"attention_fwd": 2 * L, "attention_bwd": 2 * L,
                              "attention_fwd_sm90": 0, "attention_bwd_sm90": 0, "fm_norm": 1,
-                             "pos_conv": 2, "pos_conv_dgrad": 2}
+                             "pos_conv": 2, "pos_conv_dgrad": 2, "fe_norm": 0, "fe_norm_bwd": 0}
     assert bool(torch.isfinite(new_p).all()) and bool(torch.isfinite(m.ctc_loss))

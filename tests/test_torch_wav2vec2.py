@@ -14,6 +14,7 @@ from paa_tpu.models import checkpoint_io
 from paa_tpu.models import wav2vec2 as jw2v
 from paa_tpu_torch.models import convert
 from paa_tpu_torch.models import wav2vec2 as tw2v
+from paa_tpu_torch.ops.kernels.fe_norm import _FeNorm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_CKPT = os.path.join(REPO, "checkpoints", "wav2vec2-tiny-synthetic.safetensors")
@@ -255,7 +256,7 @@ def test_feature_extractor_layer_norm_matches_layer_norm(dtype, tol):
         (y.float() * ct).sum().backward()
         return y.detach().float(), [t.grad.float() for t in leaves]
 
-    got, got_g = grads(lambda x_, w_, b_: tw2v._FeNorm.apply(x_, w_, b_, 1e-5, 1),
+    got, got_g = grads(lambda x_, w_, b_: _FeNorm.apply(x_, w_, b_, 1e-5, 1),
                        x.to(dtype))
     want, want_g = grads(lambda x_, w_, b_: torch.nn.functional.layer_norm(
         x_.float().transpose(1, 2), (24,), w_, b_, 1e-5).transpose(1, 2), x.to(dtype))

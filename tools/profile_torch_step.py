@@ -95,7 +95,7 @@ def group_of(name: str) -> str:
 SCOPES = (
     (wav2vec2.Wav2Vec2ForCTC, "forward", "model: normalize, lm_head"),
     (wav2vec2.ConvLayer, "forward", "feature extractor: conv, bias, GELU"),
-    (wav2vec2._FeNorm, "apply", "feature extractor: LayerNorm"),
+    (wav2vec2, "fe_norm_gelu", "feature extractor: bias, LayerNorm, GELU (K6 in bf16)"),
     (wav2vec2.FeatureProjection, "forward", "feature projection"),
     (wav2vec2.PositionalConvEmbedding, "forward", "positional conv"),
     (wav2vec2.EncoderLayer, "forward", "encoder layer: residual adds"),
@@ -107,6 +107,7 @@ OUTSIDE = "outside the model: CTC, update, projection"
 # kernel kinds, first match wins (lower-cased kernel name)
 KINDS = (
     ("attention", ("attn_",)), ("K3", ("fm_",)), ("K5", ("pos_conv_kernel",)),
+    ("K6", ("fe_norm_",)),
     ("conv", ("wgrad", "dgrad", "fprop", "conv",
                                                           "cudnn", "implicit")),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet")), ("GELU", ("gelu",)),
