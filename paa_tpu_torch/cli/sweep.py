@@ -30,10 +30,12 @@ per-cell semantics:
   * the sweep checkpoints per epoch and resumes exactly (the batch order is
     a pure function of (seed, epoch), as in train/loop.py), and refuses a
     checkpoint written under another configuration;
-  * per-cell results land in the run directories, ``results.json`` and
-    ``metrics.jsonl`` a single run writes (through train/loop.py's own
-    helpers, so the two loops cannot drift), plus ``sweep_results.json``;
-    under ``torchrun`` rank 0 alone writes them.
+  * each epoch is the single run's train pass and eval pass
+    (``AttackRunner.train_pass``, ``eval_pass``) with the sweep's steps, and
+    each cell keeps the single run's record (``loop.CellRecord``: history,
+    best p, early stop, ``metrics.jsonl`` and ``results.json``), so the two
+    loops cannot drift; ``sweep_results.json`` sums the norm up. Under
+    ``torchrun`` rank 0 alone writes.
 
 The sweep state is ``sweep_state_<norm>.pt`` (``torch.save`` of CPU
 tensors, read with ``weights_only=True``); the JAX package writes flax
@@ -75,8 +77,11 @@ DEFAULT_GRIDS = {
     "max_phon": [15.0, 20.0, 25.0, 30.0, 35.0],
 }
 
-HISTORY_KEYS = ("train_ctc", "train_wer", "eval_clean_ctc", "eval_clean_wer",
-                "eval_pert_ctc", "eval_pert_wer")
+# each cell record's part of a checkpoint, stacked over the cells: the sweep
+# state's name and dtype (None: a list)
+STACKED = {"best_eval_score": ("best_score_s", np.float64), "best_p": ("best_p_s", np.float32),
+           "best_epoch": ("best_epoch_s", np.int64), "no_improve": ("no_improve_s", np.int64),
+           "history": ("history_s", None)}
 
 
 def create_sweep_parser() -> argparse.ArgumentParser:
@@ -249,32 +254,6 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root, corpora) -> dict:
     step, sweep_eval = program(S)
     n_sweep = mesh_for(S).shape["sweep"]
 
-    cell_dirs = [_cell_dir(root, args, cfg, norm_type, s) for s in sizes]
-    if writer:
-        for d in cell_dirs:
-            os.makedirs(d, exist_ok=True)
-    tb_writers: dict[int, object] = {}
-
-    def _tb(i: int):
-        """Cell i's TensorBoard writer, made at first use (--tensorboard)."""
-        if not getattr(args, "tensorboard", False) or not writer:
-            return None
-        if i not in tb_writers:
-            from paa_tpu_torch.train import tb_events
-
-            tb_writers[i] = tb_events.EventWriter(os.path.join(cell_dirs[i], "tb"))
-        return tb_writers[i]
-
-    def evaluate_cells(split, p_dev) -> list:
-        """Each cell's perturbed Scores on ``split`` through the sweep eval."""
-        pending = []
-        for batch in runner._batches(split):
-            labels, pads = runner._labels(batch)
-            m = sweep_eval(p_dev, batch.audio, labels, pads, batch.weights)
-            pending.append((m, pipeline_lib.host_mask(batch), batch.indices))
-        return [loop._scores([(attack_step.cell(m, j), w, idx) for m, w, idx in pending],
-                             split.texts, float("inf")) for j in range(p_dev.shape[0])]
-
     # -- init: every cell starts from the standalone-run perturbation, the
     # same randn draw for every cell, then the cell's own projection
     p_full = torch.stack([runner.init_perturbation(cfg.seed, attack_step.cell(cparams_s, i))
@@ -282,15 +261,11 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root, corpora) -> dict:
     p_full = mesh_lib.broadcast(p_full, src=0)
     opt_full = attack_step.stack_cells(
         [optimizers.init_opt_state(cfg, p_full[i]) for i in range(S)])
-
-    # -- per-cell tracking state (host) -----------------------------------
-    # a cell's history holds only the epochs it trained: a stopped cell's
+    # a cell's record holds only the epochs it trained: a stopped cell's
     # frozen-p epochs must not enter its aggregates
-    history_s = [{k: [] for k in HISTORY_KEYS} for _ in range(S)]
-    best_score_s = np.full((S,), scoring.initial_best(cfg.attack_mode), np.float64)
-    best_p_s = p_full.cpu().numpy().copy()
-    best_epoch_s = np.full((S,), -1, np.int64)
-    no_improve_s = np.zeros((S,), np.int64)
+    records = [loop.CellRecord(cfg, _cell_dir(root, args, cfg, norm_type, size), size, p_full[i],
+                               rate_key="sweep_steps_per_sec")
+               for i, size in enumerate(sizes)]
     start_epoch = 0
     clean_eval = None  # Scores — the same for every epoch and cell
 
@@ -341,20 +316,15 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root, corpora) -> dict:
             opt_full = optimizers.AdamState(
                 *(state["opt_s"][k].to(device) for k in optimizers.AdamState._fields))
         start_epoch = int(state["epoch"]) + 1
-        best_score_s = state["best_score_s"].numpy()
-        best_p_s = state["best_p_s"].numpy()
-        best_epoch_s = state["best_epoch_s"].numpy()
-        no_improve_s = state["no_improve_s"].numpy()
-        history_s = [{k: h[k].tolist() for k in HISTORY_KEYS} for h in state["history_s"]]
+        for i, r in enumerate(records):
+            r.load({k: state[name][i] for k, (name, _) in STACKED.items()})
         ce = state["clean_eval"].numpy()
         clean_eval = scoring.Scores(float(ce[0]), float(ce[1])) if np.isfinite(ce[0]) else None
         log.info("[sweep %s] resuming at epoch %d", norm_type, start_epoch)
     mesh_lib.barrier()  # every rank has read the state before rank 0 writes
-
     # the per-cell metric streams keep only epochs before the resume point
-    if writer:
-        for d in cell_dirs:
-            loop._truncate_metrics(os.path.join(d, "metrics.jsonl"), start_epoch)
+    for r in records:
+        r.open(start_epoch, args.tensorboard)
 
     # -- live-cell device state --------------------------------------------
     # The device state holds only the cells still training; the full-S
@@ -366,37 +336,28 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root, corpora) -> dict:
     t_start = time.perf_counter()
     n_cell_steps = 0  # Σ over steps of cells actually TRAINING that step
     for epoch in range(start_epoch, cfg.num_epochs):
-        if np.all(no_improve_s >= cfg.early_stopping):
+        live_mask = np.array([not r.stopped for r in records])
+        if not live_mask.any():
             # resumed where every cell had already early-stopped: finalize
             log.info("[sweep %s] resumed fully early-stopped; finalizing", norm_type)
             break
-        live_mask = no_improve_s < cfg.early_stopping
         n_live = int(live_mask.sum())
         if _should_drop(n_live, len(dev_idx), n_dev):
             dev_idx = np.flatnonzero(live_mask)
             step, sweep_eval = program(len(dev_idx))
             keep = torch.from_numpy(dev_idx).to(device)
-            p_s = p_full[keep]
-            opt_s = None if opt_full is None else type(opt_full)(*(x[keep] for x in opt_full))
-            cparams_dev = ConstraintParams(*(x[keep] for x in cparams_s))
+            p_s, opt_s, cparams_dev = (attack_step.cell(x, keep)
+                                       for x in (p_full, opt_full, cparams_s))
             log.info("[sweep %s] dropping frozen cells: training %d/%d cells from epoch %d",
                      norm_type, len(dev_idx), S, epoch)
         # batch order is a pure function of (seed, epoch) — resume-exact,
-        # matching train/loop.py
+        # as in train/loop.py
         data_rng = np.random.default_rng((cfg.seed, epoch))
-        active = live_mask[dev_idx].astype(np.float32)
         lr = optimizers.step_lr(cfg, epoch)
-        pending = []
-        loop._sync(device)
-        t0 = time.perf_counter()
-        for batch in runner._batches(pipe.train, shuffle_rng=data_rng):
-            labels, pads = runner._labels(batch)
-            p_s, opt_s, m = step(p_s, opt_s, batch.audio, labels, pads, batch.weights,
-                                 cparams_dev, active, lr)
-            pending.append((m, pipeline_lib.host_mask(batch), batch.indices))
-        loop._sync(device)
+        p_s, opt_s, pending, seconds = runner.train_pass(
+            step, p_s, opt_s, lr, data_rng, cparams_dev, live_mask[dev_idx].astype(np.float32))
         # one cell's step: the epoch's train wall over its cell steps
-        cell_step_ms = 1000.0 * (time.perf_counter() - t0) / max(len(pending) * n_live, 1)
+        cell_step_ms = 1000.0 * seconds / max(len(pending) * n_live, 1)
         n_cell_steps += len(pending) * n_live
         # scatter the trained cells back into the full-S state
         keep = torch.from_numpy(dev_idx).to(device)
@@ -408,13 +369,11 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root, corpora) -> dict:
         # metrics, and its perturbed eval scores
         if clean_eval is None:
             clean_eval = runner.evaluate(pipe.eval, p_s[0], perturbed=False)
-        pert_dev = evaluate_cells(pipe.eval, p_s)
-        train, pert = {}, {}
-        for j, i in enumerate(dev_idx.tolist()):
-            if live_mask[i]:
-                train[i] = loop._scores([(attack_step.cell(m, j), w, idx)
-                                         for m, w, idx in pending], pipe.train.texts, 0.0)
-                pert[i] = pert_dev[j]
+        slots = np.flatnonzero(live_mask[dev_idx])
+        live = dev_idx[slots].tolist()
+        pert = dict(zip(live, loop.cell_scores(runner.eval_pass(sweep_eval, pipe.eval, p_s),
+                                               pipe.eval.texts, float("inf"), slots)))
+        train = dict(zip(live, loop.cell_scores(pending, pipe.train.texts, 0.0, slots)))
         log.info(
             "[sweep %s] epoch %d train_ctc=%s eval_pert_ctc=%s eval_pert_wer=%s active=%s "
             "cell_step_ms=%.1f", norm_type, epoch,
@@ -425,37 +384,14 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root, corpora) -> dict:
         )
 
         # per-cell records, best tracking and early stopping
-        # (run_attack.py:149-183), as train/loop.py:run_attack keeps them;
-        # the decisions gate collectives, so rank 0's scores decide them
-        wall = time.perf_counter() - t_start
+        # (run_attack.py:149-183), the single run's; the decisions gate
+        # collectives, so rank 0's scores decide them
+        rate = _rate(n_cell_steps, time.perf_counter() - t_start)
         current = mesh_lib.agree([pert[i].wer if cfg.attack_mode == "targeted" else pert[i].ctc
-                                  for i in train])
-        for i, score in zip(train, current):
-            h = history_s[i]
-            scores = (train[i].ctc, train[i].wer, clean_eval.ctc, clean_eval.wer,
-                      pert[i].ctc, pert[i].wer)
-            for key, value in zip(HISTORY_KEYS, scores):
-                h[key].append(value)
-            if writer:
-                loop._write_epoch(os.path.join(cell_dirs[i], "metrics.jsonl"), _tb(i), epoch,
-                                  train[i], clean_eval, pert[i], cell_step_ms, lr)
-                artifacts.save_json_results(
-                    cell_dirs[i], norm_type, sizes[i],
-                    epoch=epoch, finished_training=False,
-                    eval_score_clean={"ctc": clean_eval.ctc, "wer": clean_eval.wer},
-                    **loop._running_scores(h, cfg.attack_mode),
-                    sweep_steps_per_sec=_rate(n_cell_steps, wall),
-                )
-            if scoring.is_better(score, best_score_s[i], cfg.attack_mode):
-                no_improve_s[i] = 0
-                best_score_s[i] = score
-                best_epoch_s[i] = epoch
-                best_p_s[i] = p_full[i].cpu().numpy()
-                if writer:
-                    checkpoint.save_perturbation(
-                        os.path.join(cell_dirs[i], "perturbation.npy"), best_p_s[i])
-            else:
-                no_improve_s[i] += 1
+                                  for i in live])
+        for i, score in zip(live, current):
+            records[i].add_epoch(epoch, train[i], clean_eval, pert[i], cell_step_ms, lr, rate)
+            records[i].judge(epoch, score, p_full[i])
 
         if writer:
             # written unconditionally WITH every checkpoint: an `only if
@@ -463,85 +399,58 @@ def _run_norm_sweep(args, norm_type, sizes, pipe, model, root, corpora) -> dict:
             # aborted run guard a checkpoint of a different configuration
             with open(fp_path, "w") as fh:
                 json.dump(fingerprint, fh)
+            parts = [r.state() for r in records]
             checkpoint.save_checkpoint(ckpt_path, {
                 "p_s": p_full, "opt_s": None if opt_full is None else opt_full._asdict(),
                 "epoch": epoch,
-                "best_score_s": best_score_s, "best_p_s": best_p_s,
-                "best_epoch_s": best_epoch_s, "no_improve_s": no_improve_s,
-                "history_s": [{k: torch.tensor(h[k], dtype=torch.float64) for k in HISTORY_KEYS}
-                              for h in history_s],
+                **{name: [q[k] for q in parts] if dtype is None
+                   else np.asarray([q[k] for q in parts], dtype)
+                   for k, (name, dtype) in STACKED.items()},
                 "clean_eval": np.asarray(
                     (clean_eval.ctc, clean_eval.wer) if clean_eval else (np.inf, np.inf),
                     np.float64),
             })
-        if np.all(no_improve_s >= cfg.early_stopping):
+        if all(r.stopped for r in records):
             log.info("[sweep %s] every cell early-stopped at epoch %d", norm_type, epoch)
             break
     wall = time.perf_counter() - t_start
 
     # -- finalize: best p per cell on the test split (run_attack.py:185-261)
     _, sweep_eval = program(S)
-    best_p_dev = torch.from_numpy(best_p_s).to(device)
+    best_p_dev = torch.from_numpy(np.stack([r.best_p for r in records])).to(device)
     test_clean = runner.evaluate(pipe.test, best_p_dev[0], perturbed=False)
-    clean_test = {"ctc": test_clean.ctc, "wer": test_clean.wer}
-    pert_tests = evaluate_cells(pipe.test, best_p_dev)
+    pert_tests = loop.cell_scores(runner.eval_pass(sweep_eval, pipe.test, best_p_dev),
+                                  pipe.test.texts, float("inf"), range(S))
     norm_summary = []
-    for i, size in enumerate(sizes):
-        h = history_s[i]
-        test_pert = {"ctc": pert_tests[i].ctc, "wer": pert_tests[i].wer}
+    for i, (r, test_pert) in enumerate(zip(records, pert_tests)):
         if writer:
-            artifacts.save_epoch_bundle(cell_dirs[i], best_p_s[i][0], cfg)
+            artifacts.save_epoch_bundle(r.save_dir, r.best_p[0], cfg)
         if getattr(args, "cell_artifacts", False):
             # the full per-cell bundle a reference SLURM cell emits from its
             # own `main` (run_attack.py:61-183, save.py:49-199)
             samples = (runner.inspect_samples(best_p_dev[i], args.num_items_to_inspect)
                        if args.num_items_to_inspect > 0 else None)
+            r.save_loss_plot(test_clean, test_pert)
             if writer:
-                artifacts.save_loss_plot(
-                    {"ctc": h["train_ctc"], "wer": h["train_wer"]},
-                    {"ctc": h["eval_clean_ctc"], "wer": h["eval_clean_wer"]},
-                    {"ctc": h["eval_pert_ctc"], "wer": h["eval_pert_wer"]},
-                    cell_dirs[i], norm_type,
-                    clean_test_loss=clean_test, perturbed_test_loss=test_pert,
-                )
                 if samples is not None:
-                    artifacts.inspect_samples(cell_dirs[i], samples, cfg.attack_mode,
+                    artifacts.inspect_samples(r.save_dir, samples, cfg.attack_mode,
                                               cfg.target, cfg.sr)
-                artifacts.save_debug_plots(cell_dirs[i], best_p_s[i], cfg,
+                artifacts.save_debug_plots(r.save_dir, r.best_p, cfg,
                                            attack_step.cell(cparams_s, i), runner.tables,
                                            tag="final")
-        running = loop._running_scores(h, cfg.attack_mode)
-        if writer:
-            artifacts.save_json_results(
-                cell_dirs[i], norm_type, size,
-                epoch=int(best_epoch_s[i]), finished_training=True,
-                best_epoch=int(best_epoch_s[i]),
-                best_train_score=running["train_score"],
-                eval_score_clean=clean_test,
-                eval_score_perturbed=test_pert,
-                final_test_clean=clean_test,
-                final_test_perturbed=test_pert,
-                sweep_steps_per_sec=_rate(n_cell_steps, wall),
-            )
+        r.finish(test_clean, test_pert, _rate(n_cell_steps, wall))
+        running = r.running_scores()
         norm_summary.append({
-            "size": float(size),
-            "best_epoch": int(best_epoch_s[i]),
-            "best_eval_score": float(best_score_s[i]),
+            "size": float(r.size),
+            "best_epoch": r.best_epoch,
+            "best_eval_score": float(r.best_score),
             "best_eval_pert_ctc": running["eval_score_perturbed"]["ctc"],
             "best_eval_pert_wer": running["eval_score_perturbed"]["wer"],
-            "final_ctc": h["train_ctc"][-1] if h["train_ctc"] else None,
+            "final_ctc": r.history["train_ctc"][-1] if r.history["train_ctc"] else None,
             "test_clean_ctc": test_clean.ctc, "test_clean_wer": test_clean.wer,
-            "test_pert_ctc": test_pert["ctc"],
-            "test_pert_wer": test_pert["wer"],
-            "dir": cell_dirs[i],
+            "test_pert_ctc": test_pert.ctc, "test_pert_wer": test_pert.wer,
+            "dir": r.save_dir,
         })
-        w = _tb(i)
-        if w is not None:
-            w.scalars({
-                "test/clean_ctc": test_clean.ctc, "test/clean_wer": test_clean.wer,
-                "test/pert_ctc": test_pert["ctc"], "test/pert_wer": test_pert["wer"],
-            }, step=int(best_epoch_s[i]))
-            w.close()
     return {
         "cells": norm_summary,
         # ACTIVE-cell steps only: frozen cells are no live throughput

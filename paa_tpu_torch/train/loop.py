@@ -13,7 +13,10 @@ step:
     CTC (untargeted), with early stopping;
   * resume is exact: p, Adam state, epoch, best score and history are
     checkpointed (train/checkpoint.py), and the shuffle order is a pure
-    function of (seed, epoch).
+    function of (seed, epoch);
+  * the ε sweep (cli/sweep.py) runs its epochs through the same train and
+    eval passes with its own steps, and keeps one :class:`CellRecord`, the
+    run's record, per cell.
 
 Under ``torchrun`` the runner takes its mesh from ``decide_mesh`` (the
 reference's mesh branches): dp, or dp × tp with the model sharded on the
@@ -52,6 +55,11 @@ from paa_tpu_torch.train import checkpoint
 
 logger = logging.getLogger("paa_tpu")
 
+# the series every cell records an epoch of, and those a targeted run adds
+HISTORY_KEYS = ("train_ctc", "train_wer", "eval_clean_ctc", "eval_clean_wer",
+                "eval_pert_ctc", "eval_pert_wer")
+TARGETED_KEYS = ("eval_emission_rate", "eval_wer_to_target")
+
 
 @dataclasses.dataclass
 class RunResult:
@@ -82,25 +90,6 @@ def _targeted_labels(cfg: AttackConfig, batch_size: int, label_len: int,
     return labels, paddings
 
 
-def _truncate_metrics(path: str, start_epoch: int) -> None:
-    """Keep only metrics.jsonl lines with epoch < start_epoch."""
-    if not os.path.exists(path):
-        return
-    if start_epoch <= 0:
-        os.remove(path)
-        return
-    kept = []
-    with open(path) as f:
-        for line in f:
-            try:
-                if json.loads(line).get("epoch", start_epoch) < start_epoch:
-                    kept.append(line)
-            except json.JSONDecodeError:
-                pass
-    with open(path, "w") as f:
-        f.writelines(kept)
-
-
 def _batch_wer(ids: np.ndarray, ref_texts: list[str]) -> tuple[float, list[str]]:
     preds = [p.lower() for p in text_ops.decode_batch(ids)]
     return wer_ops.wer(preds, [r.lower() for r in ref_texts]), preds
@@ -127,40 +116,161 @@ def _scores(pending: list, texts: list[str], empty: float,
     return scoring.Scores(avg(ctc_scores), avg(wer_scores))
 
 
-def _write_epoch(metrics_path: str, tb_writer, epoch: int, train: scoring.Scores,
-                 clean: scoring.Scores, pert: scoring.Scores, step_ms: float, lr: float,
-                 extra: dict | None = None) -> None:
-    """One epoch's line of metrics.jsonl and, with a writer, its
-    TensorBoard scalars; ``extra`` holds further ``eval_*`` fields."""
-    extra = extra or {}
-    with open(metrics_path, "a") as f:
-        f.write(json.dumps({
-            "epoch": epoch, "train_ctc": train.ctc, "train_wer": train.wer,
-            "eval_clean_ctc": clean.ctc, "eval_clean_wer": clean.wer,
-            "eval_pert_ctc": pert.ctc, "eval_pert_wer": pert.wer,
-            "step_time_ms": step_ms, "lr": lr, **extra,
-        }) + "\n")
-    if tb_writer is not None:
-        tb_writer.scalars({
-            "train/ctc": train.ctc, "train/wer": train.wer,
-            "eval/clean_ctc": clean.ctc, "eval/clean_wer": clean.wer,
-            "eval/pert_ctc": pert.ctc, "eval/pert_wer": pert.wer,
-            "train/step_time_ms": step_ms, "train/lr": lr,
-            **{f"eval/{k[len('eval_'):]}": v for k, v in extra.items()},
-        }, step=epoch)
-        tb_writer.flush()
+def cell_scores(pending: list, texts: list[str], empty: float, cells) -> list[scoring.Scores]:
+    """The Scores of each cell of ``cells`` from the ``pending`` of a pass of
+    a sweep step, whose metrics stack along the cell axis."""
+    return [_scores([(attack_step.cell(m, j), w, idx) for m, w, idx in pending], texts, empty)
+            for j in cells]
 
 
-def _running_scores(history: dict, mode: str) -> dict:
-    """results.json's best-so-far perturbed-eval and train scores."""
-    agg = lambda key: scoring.best_agg(history[key], mode)
-    return {"eval_score_perturbed": {"ctc": agg("eval_pert_ctc"), "wer": agg("eval_pert_wer")},
-            "train_score": {"ctc": agg("train_ctc"), "wer": agg("train_wer")}}
+def _epoch_of(line: str, default: int) -> int:
+    """The epoch of a metrics.jsonl line; ``default`` for one without."""
+    try:
+        return json.loads(line).get("epoch", default)
+    except json.JSONDecodeError:
+        return default
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+class CellRecord:
+    """One attack cell's record and run directory: the history of the
+    epochs it trained, its best score, epoch and perturbation, and its
+    early-stop count. :func:`run_attack` keeps one; the sweep keeps one per
+    cell. Only the writer rank writes; ``rate_key`` names results.json's
+    throughput field."""
+
+    def __init__(self, cfg: AttackConfig, save_dir: str, size, p: torch.Tensor,
+                 keys=HISTORY_KEYS, rate_key: str = "steps_per_sec"):
+        self.cfg, self.save_dir, self.size, self.rate_key = cfg, save_dir, size, rate_key
+        self.writer = mesh_lib.is_writer()
+        if self.writer:
+            os.makedirs(save_dir, exist_ok=True)
+        self.history = {k: [] for k in keys}
+        self.best_score = scoring.initial_best(cfg.attack_mode)
+        self.best_epoch, self.no_improve = -1, 0
+        self.best_p = p.detach().cpu().numpy().copy()
+        self.tb = None
+
+    @property
+    def stopped(self) -> bool:
+        return self.no_improve >= self.cfg.early_stopping
+
+    def state(self) -> dict:
+        """The record's part of a checkpoint."""
+        return {"best_epoch": self.best_epoch, "no_improve": self.no_improve,
+                "best_eval_score": self.best_score, "best_p": self.best_p,
+                "history": {k: torch.tensor(v, dtype=torch.float64)
+                            for k, v in self.history.items()}}
+
+    def load(self, state: dict) -> None:
+        """Take the record's part of a loaded checkpoint."""
+        self.best_epoch = int(state["best_epoch"])
+        self.no_improve = int(state["no_improve"])
+        self.best_score = float(state["best_eval_score"])
+        self.best_p = state["best_p"].numpy()
+        self.history = {k: state["history"][k].tolist() for k in self.history}
+
+    def open(self, start_epoch: int, tensorboard: bool) -> None:
+        """Keep only the metrics.jsonl lines of epochs before
+        ``start_epoch``; with ``tensorboard``, mirror the scalars to
+        ``save_dir/tb/``."""
+        if not self.writer:
+            return
+        path = os.path.join(self.save_dir, "metrics.jsonl")
+        if os.path.exists(path) and start_epoch <= 0:
+            os.remove(path)
+        elif os.path.exists(path):
+            with open(path) as f:
+                kept = [line for line in f if _epoch_of(line, start_epoch) < start_epoch]
+            with open(path, "w") as f:
+                f.writelines(kept)
+        if tensorboard:
+            from paa_tpu_torch.train import tb_events
+
+            self.tb = tb_events.EventWriter(os.path.join(self.save_dir, "tb"))
+
+    def running_scores(self) -> dict:
+        """results.json's best-so-far perturbed-eval and train scores."""
+        agg = lambda key: scoring.best_agg(self.history[key], self.cfg.attack_mode)
+        return {"eval_score_perturbed": {"ctc": agg("eval_pert_ctc"), "wer": agg("eval_pert_wer")},
+                "train_score": {"ctc": agg("train_ctc"), "wer": agg("train_wer")}}
+
+    def add_epoch(self, epoch: int, train: scoring.Scores, clean: scoring.Scores,
+                  pert: scoring.Scores, step_ms: float, lr: float, rate: float | None,
+                  extra: dict | None = None) -> None:
+        """An epoch's scores into the history, its metrics.jsonl line and
+        TensorBoard scalars, and the running results.json; ``extra`` holds
+        further ``eval_*`` series."""
+        extra = extra or {}
+        row = dict(zip(HISTORY_KEYS, (train.ctc, train.wer, clean.ctc, clean.wer,
+                                      pert.ctc, pert.wer)))
+        for k, v in {**row, **extra}.items():
+            self.history[k].append(v)
+        if not self.writer:
+            return
+        with open(os.path.join(self.save_dir, "metrics.jsonl"), "a") as f:
+            f.write(json.dumps({"epoch": epoch, **row, "step_time_ms": step_ms, "lr": lr,
+                                **extra}) + "\n")
+        if self.tb is not None:
+            # train_ctc is train/ctc, eval_clean_ctc eval/clean_ctc
+            tags = lambda d: {k.replace("_", "/", 1): v for k, v in d.items()}
+            self.tb.scalars({**tags(row), "train/step_time_ms": step_ms, "train/lr": lr,
+                             **tags(extra)}, step=epoch)
+            self.tb.flush()
+        artifacts.save_json_results(
+            self.save_dir, self.cfg.norm_type, self.size, epoch=epoch, finished_training=False,
+            eval_score_clean=dataclasses.asdict(clean), **self.running_scores(),
+            **{self.rate_key: rate})
+
+    def judge(self, epoch: int, score: float, p: torch.Tensor) -> bool:
+        """Whether ``score`` beats the best so far; if so ``p`` becomes the
+        best and is written to perturbation.npy, else the early-stop count
+        grows."""
+        if not scoring.is_better(score, self.best_score, self.cfg.attack_mode):
+            self.no_improve += 1
+            return False
+        self.no_improve, self.best_score, self.best_epoch = 0, score, epoch
+        self.best_p = p.detach().cpu().numpy().copy()
+        if self.writer:
+            checkpoint.save_perturbation(os.path.join(self.save_dir, "perturbation.npy"),
+                                         self.best_p)
+        return True
+
+    def save_loss_plot(self, clean_test: scoring.Scores | None = None,
+                       pert_test: scoring.Scores | None = None) -> None:
+        """The CTC and WER curves so far, with the test scores' levels if
+        given."""
+        if self.writer:
+            h = self.history
+            curves = ({"ctc": h[f"{k}_ctc"], "wer": h[f"{k}_wer"]}
+                      for k in ("train", "eval_clean", "eval_pert"))
+            tests = {} if clean_test is None else {
+                "clean_test_loss": dataclasses.asdict(clean_test),
+                "perturbed_test_loss": dataclasses.asdict(pert_test)}
+            artifacts.save_loss_plot(*curves, self.save_dir, self.cfg.norm_type, **tests)
+
+    def finish(self, clean_test: scoring.Scores, pert_test: scoring.Scores, rate: float | None,
+               **extra) -> None:
+        """The final results.json of the best p's test scores, and their
+        TensorBoard scalars at the best epoch; ``extra`` holds further
+        fields."""
+        clean, pert = dataclasses.asdict(clean_test), dataclasses.asdict(pert_test)
+        if self.writer:
+            artifacts.save_json_results(
+                self.save_dir, self.cfg.norm_type, self.size,
+                epoch=self.best_epoch, finished_training=True, best_epoch=self.best_epoch,
+                best_train_score=self.running_scores()["train_score"],
+                eval_score_clean=clean, eval_score_perturbed=pert,
+                final_test_clean=clean, final_test_perturbed=pert,
+                **{self.rate_key: rate}, **extra)
+        if self.tb is not None:
+            self.tb.scalars({f"test/{name}_{k}": v for name, s in (("clean", clean), ("pert", pert))
+                             for k, v in s.items()}, step=self.best_epoch)
+            self.tb.close()
 
 
 class AttackRunner:
@@ -208,12 +318,6 @@ class AttackRunner:
             self._tgt = (torch.from_numpy(tl).to(self.device),
                          torch.from_numpy(tp).to(self.device))
 
-    def _batches(self, split: pipeline_lib.Split, shuffle_rng=None):
-        return self.corpora.batches(split, self.cfg.batch_size, shuffle_rng=shuffle_rng)
-
-    def _labels(self, batch):
-        return self._tgt if self._tgt is not None else (batch.labels, batch.label_paddings)
-
     # -- perturbation lifecycle ------------------------------------------
 
     def init_perturbation(self, seed: int, cparams: ConstraintParams | None = None) -> torch.Tensor:
@@ -235,20 +339,40 @@ class AttackRunner:
 
     # -- epochs ------------------------------------------------------------
 
-    def train_epoch(self, p, opt_state, epoch: int, shuffle_rng) -> tuple:
-        cfg = self.cfg
-        lr = optimizers.step_lr(cfg, epoch)
-        # metrics stay on the device until every step of the epoch is queued
+    def train_pass(self, step, p, opt_state, lr: float, shuffle_rng, *cell_args) -> tuple:
+        """One pass of ``step(p, opt_state, audio, labels, label_paddings,
+        weights, *cell_args, lr)`` over the train split in ``shuffle_rng``'s
+        order; targeted runs swap the loss labels. Returns the new p and
+        optimizer state, each batch's metrics (left on the device until every
+        step is queued) with its host row mask and row indices, and the
+        pass's wall seconds."""
         pending = []
         _sync(self.device)
         t0 = time.perf_counter()
-        for batch in self._batches(self.pipe.train, shuffle_rng):
-            labels, pads = self._labels(batch)
-            p, opt_state, m = self.train_step(p, opt_state, batch.audio, labels, pads,
-                                              batch.weights, self.cparams, lr)
+        for batch in self.corpora.batches(self.pipe.train, self.cfg.batch_size,
+                                          shuffle_rng=shuffle_rng):
+            labels, pads = self._tgt or (batch.labels, batch.label_paddings)
+            p, opt_state, m = step(p, opt_state, batch.audio, labels, pads, batch.weights,
+                                   *cell_args, lr)
             pending.append((m, pipeline_lib.host_mask(batch), batch.indices))
         _sync(self.device)
-        step_time = (time.perf_counter() - t0) / max(len(pending), 1)
+        return p, opt_state, pending, time.perf_counter() - t0
+
+    def eval_pass(self, step, split: pipeline_lib.Split, p) -> list:
+        """``step(p, audio, labels, label_paddings, weights)`` over ``split``:
+        each batch's metrics with its host row mask and row indices."""
+        pending = []
+        for batch in self.corpora.batches(split, self.cfg.batch_size):
+            labels, pads = self._tgt or (batch.labels, batch.label_paddings)
+            m = step(p, batch.audio, labels, pads, batch.weights)
+            pending.append((m, pipeline_lib.host_mask(batch), batch.indices))
+        return pending
+
+    def train_epoch(self, p, opt_state, epoch: int, shuffle_rng) -> tuple:
+        p, opt_state, pending, seconds = self.train_pass(
+            self.train_step, p, opt_state, optimizers.step_lr(self.cfg, epoch), shuffle_rng,
+            self.cparams)
+        step_time = seconds / max(len(pending), 1)
         return p, opt_state, _scores(pending, self.pipe.train.texts, 0.0), step_time
 
     def evaluate(self, split: pipeline_lib.Split, p, perturbed: bool, return_preds: bool = False):
@@ -256,12 +380,7 @@ class AttackRunner:
         swap the loss labels; WER stays against the ground truth. With
         ``return_preds`` returns ``(Scores, preds)``, the lowercased greedy
         decodes in split order."""
-        p_eff = p if perturbed else torch.zeros_like(p)
-        pending = []
-        for batch in self._batches(split):
-            labels, pads = self._labels(batch)
-            m = self.eval_step(p_eff, batch.audio, labels, pads, batch.weights)
-            pending.append((m, pipeline_lib.host_mask(batch), batch.indices))
+        pending = self.eval_pass(self.eval_step, split, p if perturbed else torch.zeros_like(p))
         preds = [] if return_preds else None
         scores = _scores(pending, split.texts, float("inf"), preds)
         return (scores, preds) if return_preds else scores
@@ -314,11 +433,8 @@ def run_attack(
     ``save_dir/tb/``. Under ``torchrun`` every rank calls it; rank 0
     writes."""
     writer = mesh_lib.is_writer()
-    if writer:
-        os.makedirs(save_dir, exist_ok=True)
     runner = AttackRunner(cfg, model, pipe, cparams)
     cparams, device = runner.cparams, runner.device
-    size_str = attack_size_value(cfg, cparams)
 
     if init_p is not None:
         if init_p.shape[-1] != pipe.audio_len:
@@ -330,54 +446,29 @@ def run_attack(
     p = mesh_lib.broadcast(p.contiguous(), src=0)
     opt_state = optimizers.init_opt_state(cfg, p)
 
-    history = {
-        "train_ctc": [], "train_wer": [],
-        "eval_clean_ctc": [], "eval_clean_wer": [],
-        "eval_pert_ctc": [], "eval_pert_wer": [],
-    }
     targeted = cfg.attack_mode == "targeted"
-    if targeted:
-        history["eval_emission_rate"] = []
-        history["eval_wer_to_target"] = []
+    record = CellRecord(cfg, save_dir, attack_size_value(cfg, cparams), p,
+                        HISTORY_KEYS + (TARGETED_KEYS if targeted else ()))
     start_epoch = 0
-    best_epoch = -1
-    no_improve = 0
-    best_eval_score = scoring.initial_best(cfg.attack_mode)
-    best_p = p.detach().cpu().numpy()
-
     ckpt_path = os.path.join(save_dir, checkpoint.STATE_FILE)
-    pert_path = os.path.join(save_dir, "perturbation.npy")
     found, path = checkpoint.discover_resume(save_dir)
     if resume and found:
-        state = checkpoint.load_checkpoint(path, {"history": history})
+        state = checkpoint.load_checkpoint(path, {"history": record.history})
         p = state["p"].to(device)
         if state["opt_state"] is not None:
             opt_state = optimizers.AdamState(
                 *(state["opt_state"][k].to(device) for k in optimizers.AdamState._fields))
         start_epoch = int(state["epoch"]) + 1
-        best_epoch = int(state["best_epoch"])
-        no_improve = int(state["no_improve"])
-        best_eval_score = float(state["best_eval_score"])
-        best_p = state["best_p"].numpy()
-        history = {k: v.tolist() for k, v in state["history"].items()}
+        record.load(state)
         logger.info("Resuming from checkpoint: %s (epoch=%d)", path, start_epoch)
     # every rank has read the state before rank 0 writes the next one
     mesh_lib.barrier()
-
     # the metric stream keeps only epochs before the resume point
-    metrics_path = os.path.join(save_dir, "metrics.jsonl")
-    if writer:
-        _truncate_metrics(metrics_path, start_epoch)
-    tb_writer = None
-    if tensorboard and writer:
-        from paa_tpu_torch.train import tb_events
+    record.open(start_epoch, tensorboard)
 
-        tb_writer = tb_events.EventWriter(os.path.join(save_dir, "tb"))
-
-    clean_eval_cache = None
-    step_ms = 0.0
+    clean = rate = None
     for epoch in range(start_epoch, cfg.num_epochs):
-        if no_improve >= cfg.early_stopping:
+        if record.stopped:
             logger.info("resumed run already early-stopped; finalizing")
             break
         logger.info("starting epoch: %d", epoch)
@@ -386,26 +477,15 @@ def run_attack(
             p, opt_state, epoch, shuffle_rng=data_rng)
         step_ms = 1000.0 * step_time
         # the clean pass does not depend on p: evaluate once
-        if clean_eval_cache is None:
-            clean_eval_cache = runner.evaluate(pipe.eval, p, perturbed=False)
-        clean = clean_eval_cache
-        emis = None
+        if clean is None:
+            clean = runner.evaluate(pipe.eval, p, perturbed=False)
+        pert, pert_preds = runner.evaluate(pipe.eval, p, perturbed=True, return_preds=True)
+        emis = {}
         if targeted:
-            pert, pert_preds = runner.evaluate(pipe.eval, p, perturbed=True, return_preds=True)
-            emis = scoring.emission_metrics(pert_preds, cfg.target, cfg.target_reps)
-            history["eval_emission_rate"].append(emis["emission_rate"])
-            history["eval_wer_to_target"].append(emis["wer_to_target"])
+            m = scoring.emission_metrics(pert_preds, cfg.target, cfg.target_reps)
+            emis = {f"eval_{k}": m[k] for k in ("emission_rate", "wer_to_target")}
             logger.info("targeted: emission_rate=%.4f wer_to_target=%.4f",
-                        emis["emission_rate"], emis["wer_to_target"])
-        else:
-            pert = runner.evaluate(pipe.eval, p, perturbed=True)
-
-        history["train_ctc"].append(train_scores.ctc)
-        history["train_wer"].append(train_scores.wer)
-        history["eval_clean_ctc"].append(clean.ctc)
-        history["eval_clean_wer"].append(clean.wer)
-        history["eval_pert_ctc"].append(pert.ctc)
-        history["eval_pert_wer"].append(pert.wer)
+                        m["emission_rate"], m["wer_to_target"])
 
         log_helpers.log_epoch_metrics(
             epoch, cfg.num_epochs,
@@ -414,66 +494,40 @@ def run_attack(
             eval_wer_clean=clean.wer, eval_wer_perturbed=pert.wer,
             step_time_ms=step_ms,
         )
-        emis_fields = ({"eval_emission_rate": emis["emission_rate"],
-                        "eval_wer_to_target": emis["wer_to_target"]} if emis else {})
-        if writer:
-            _write_epoch(metrics_path, tb_writer, epoch, train_scores, clean, pert, step_ms,
-                         optimizers.step_lr(cfg, epoch), emis_fields)
-            artifacts.save_loss_plot(
-                {"ctc": history["train_ctc"], "wer": history["train_wer"]},
-                {"ctc": history["eval_clean_ctc"], "wer": history["eval_clean_wer"]},
-                {"ctc": history["eval_pert_ctc"], "wer": history["eval_pert_wer"]},
-                save_dir, cfg.norm_type,
-            )
-            artifacts.save_json_results(
-                save_dir, cfg.norm_type, size_str,
-                epoch=epoch, finished_training=False,
-                eval_score_clean={"ctc": clean.ctc, "wer": clean.wer},
-                **_running_scores(history, cfg.attack_mode),
-                steps_per_sec=(1000.0 / step_ms if step_ms else None),
-            )
+        rate = 1000.0 / step_ms if step_ms else None
+        record.add_epoch(epoch, train_scores, clean, pert, step_ms,
+                         optimizers.step_lr(cfg, epoch), rate, emis)
+        record.save_loss_plot()
 
         # the branch below gates collectives (inspection's eval steps, the
         # next epoch): rank 0's score decides it on every rank
         (current,) = mesh_lib.agree([pert.wer if targeted else pert.ctc])
-        if scoring.is_better(current, best_eval_score, cfg.attack_mode):
-            no_improve = 0
-            best_eval_score = current
-            best_epoch = epoch
-            best_p = p.detach().cpu().numpy()
+        if record.judge(epoch, current, p):
             if writer:
-                checkpoint.save_perturbation(pert_path, best_p)
-                artifacts.save_epoch_bundle(save_dir, best_p[0], cfg)
+                artifacts.save_epoch_bundle(save_dir, record.best_p[0], cfg)
                 if debug_plots:
-                    artifacts.save_debug_plots(save_dir, best_p, cfg, cparams, runner.tables,
-                                               tag=f"epoch{epoch}")
+                    artifacts.save_debug_plots(save_dir, record.best_p, cfg, cparams,
+                                               runner.tables, tag=f"epoch{epoch}")
             if num_items_to_inspect > 0:
                 samples = runner.inspect_samples(p, num_items_to_inspect)
                 if writer:
                     artifacts.inspect_samples(save_dir, samples, cfg.attack_mode, cfg.target,
                                               cfg.sr)
-        else:
-            no_improve += 1
 
         if writer:
             checkpoint.save_checkpoint(ckpt_path, {
-                "p": p,
-                "opt_state": None if opt_state is None else opt_state._asdict(),
-                "epoch": epoch, "best_epoch": best_epoch, "no_improve": no_improve,
-                "best_eval_score": best_eval_score, "best_p": best_p,
-                "history": {k: torch.tensor(v, dtype=torch.float64) for k, v in history.items()},
-            })
-        if no_improve >= cfg.early_stopping:
-            logger.info("No improvements in %d epochs. Stopping early.", no_improve)
+                "p": p, "opt_state": None if opt_state is None else opt_state._asdict(),
+                "epoch": epoch, **record.state()})
+        if record.stopped:
+            logger.info("No improvements in %d epochs. Stopping early.", record.no_improve)
             break
 
     # -- finalize: the best p on the test split
-    p = torch.from_numpy(best_p).to(device)
+    p = torch.from_numpy(record.best_p).to(device)
+    pert_test, test_preds = runner.evaluate(pipe.test, p, perturbed=True, return_preds=True)
+    clean_test, clean_preds = runner.evaluate(pipe.test, p, perturbed=False, return_preds=True)
     test_emis = None
     if targeted:
-        pert_test, test_preds = runner.evaluate(pipe.test, p, perturbed=True, return_preds=True)
-        clean_test, clean_preds = runner.evaluate(pipe.test, p, perturbed=False,
-                                                  return_preds=True)
         test_emis = {
             "perturbed": scoring.emission_metrics(test_preds, cfg.target, cfg.target_reps),
             # clean emission is the false-positive floor
@@ -483,41 +537,15 @@ def run_attack(
                     test_emis["perturbed"]["emission_rate"],
                     test_emis["clean"]["emission_rate"],
                     test_emis["perturbed"]["wer_to_target"])
-    else:
-        pert_test = runner.evaluate(pipe.test, p, perturbed=True)
-        clean_test = runner.evaluate(pipe.test, p, perturbed=False)
 
-    if writer:
-        artifacts.save_loss_plot(
-            {"ctc": history["train_ctc"], "wer": history["train_wer"]},
-            {"ctc": history["eval_clean_ctc"], "wer": history["eval_clean_wer"]},
-            {"ctc": history["eval_pert_ctc"], "wer": history["eval_pert_wer"]},
-            save_dir, cfg.norm_type,
-            clean_test_loss={"ctc": clean_test.ctc, "wer": clean_test.wer},
-            perturbed_test_loss={"ctc": pert_test.ctc, "wer": pert_test.wer},
-        )
-        artifacts.save_json_results(
-            save_dir, cfg.norm_type, size_str,
-            epoch=best_epoch, finished_training=True, best_epoch=best_epoch,
-            best_train_score=_running_scores(history, cfg.attack_mode)["train_score"],
-            eval_score_clean={"ctc": clean_test.ctc, "wer": clean_test.wer},
-            eval_score_perturbed={"ctc": pert_test.ctc, "wer": pert_test.wer},
-            final_test_clean={"ctc": clean_test.ctc, "wer": clean_test.wer},
-            final_test_perturbed={"ctc": pert_test.ctc, "wer": pert_test.wer},
-            steps_per_sec=(1000.0 / step_ms if step_ms else None),
-            **({"targeted_metrics": test_emis} if test_emis is not None else {}),
-        )
+    record.save_loss_plot(clean_test, pert_test)
+    record.finish(clean_test, pert_test, rate, targeted_metrics=test_emis)
     log_helpers.log_summary_metrics(
-        norm_type=cfg.norm_type, attack_size_string=str(size_str),
+        norm_type=cfg.norm_type, attack_size_string=str(record.size),
         clean_ctc_test=clean_test.ctc, clean_wer_test=clean_test.wer,
         pert_ctc_test=pert_test.ctc, pert_wer_test=pert_test.wer,
-        best_epoch=best_epoch,
+        best_epoch=record.best_epoch,
     )
-    if tb_writer is not None:
-        tb_writer.scalars({
-            "test/clean_ctc": clean_test.ctc, "test/clean_wer": clean_test.wer,
-            "test/pert_ctc": pert_test.ctc, "test/pert_wer": pert_test.wer,
-        }, step=best_epoch)
-        tb_writer.close()
-    return RunResult(best_epoch=best_epoch, test_clean=clean_test, test_perturbed=pert_test,
-                     perturbation=best_p, history=history)
+    return RunResult(best_epoch=record.best_epoch, test_clean=clean_test,
+                     test_perturbed=pert_test, perturbation=record.best_p,
+                     history=record.history)
