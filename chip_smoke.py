@@ -33,6 +33,12 @@ line:
                999, 1024), the tiny anchor's groups and a ragged length,
                with equal bits on a repeat, one launch a call, and
                F.conv1d and cuDNN's input gradient as ``library_ms``.
+               K7 (the encoder's LayerNorm, both directions) at an lv60
+               microbatch at 20 s and 30 s, an lv60 eval batch, a base
+               batch and lv60's feature projection, bf16, with equal bits
+               on a repeat, one launch a call, its byte bound, the plain
+               version's ms and F.layer_norm with its autograd backward as
+               ``library_ms``.
   3. tiny    — the committed tiny checkpoint: one fletcher_munson PGD train
                step and one eval step on the card (through the kernels),
                held against the same steps on the CPU (plain versions, f32).
@@ -180,7 +186,7 @@ from paa_tpu_torch.config import AttackConfig, ConstraintParams
 from paa_tpu_torch.data import pipeline, synthetic
 from paa_tpu_torch.models import checkpoint_io, wav2vec2
 from paa_tpu_torch.ops import dsp, psycho, text
-from paa_tpu_torch.ops.kernels import _lib, attention, fe_norm, fm_norm, pos_conv
+from paa_tpu_torch.ops.kernels import _lib, attention, fe_norm, fm_norm, layer_norm, pos_conv
 from paa_tpu_torch.parallel import mesh as mesh_lib, tp as tp_lib
 from paa_tpu_torch.train import pretrain
 
@@ -204,6 +210,7 @@ POS_CONV_TOL = 2e-2  # K5: bf16 outputs, as ATTN_TOL's
 # float32 on the same bf16 values: each output is rounded once to bf16, so it
 # lies within one bf16 step (2^-8) of the output's scale
 FE_NORM_TOL = 2.0**-8
+LAYER_NORM_TOL = 2.0**-8  # K7, as FE_NORM_TOL
 
 # The H100 SXM's published peaks (dense), for the bounds: bf16 on the tensor
 # cores, float32 outside them, and device memory.
@@ -606,6 +613,78 @@ def fe_norm_more(out: dict, y, dout, params, mean, rstd, eps) -> list:
     return fail
 
 
+def check_layer_norm(B, T, C, dev, iters=20) -> dict:
+    """K7's forward (saving x̂ and 1/std, as under grad) and backward against
+    the plain version in float32 on the same bf16 values, their bits on a
+    repeat and one launch a call; each direction's ms, its device ms (a CUDA
+    graph of 20 calls), its byte bound (6 B a value each way, 1/std's 4 B a
+    row), the plain version's ms in bf16 (the route before K7) and the
+    library's, ``F.layer_norm`` and its autograd backward alone; and the
+    forward with grad off (4 B a value), as an eval batch runs it."""
+    g = torch.Generator(device=dev).manual_seed(T * 7 + C)
+    x = (torch.randn((B, T, C), generator=g, device=dev) * 1.5 + 0.1).to(torch.bfloat16)
+    dout = torch.randn((B, T, C), generator=g, device=dev).to(torch.bfloat16)
+    weight = 1 + torch.randn(C, generator=g, device=dev) * 0.2
+    bias = torch.randn(C, generator=g, device=dev) * 0.2
+    eps = 1e-5
+    fwd = lambda: layer_norm.layer_norm_fwd(x, weight, bias, eps, save=True)
+    _lib.reset_launches()
+    out_, xhat, rstd = fwd()
+    bwd = lambda: layer_norm.layer_norm_bwd(dout, xhat, rstd, weight, wgrad=False)
+    dx = bwd()[0]
+    launches = [_lib.launches["layer_norm"], _lib.launches["layer_norm_bwd"]]
+    torch.cuda.synchronize()
+    bits = torch.equal(fwd()[0], out_) and torch.equal(bwd()[0], dx)
+    xr = x.float().requires_grad_(True)
+    out_ref = wav2vec2._LayerNormFn.apply(xr, weight, bias, eps)
+    (dx_ref,) = torch.autograd.grad(out_ref, xr, dout.float())
+    out_ref = out_ref.detach()
+    out = {"phase": "kernels", "kernel": "layer_norm", "B": B, "T": T, "C": C,
+           "dtype": "bfloat16", "tol_rel": LAYER_NORM_TOL, "bits_repeat": bits,
+           "launches_per_call": launches}
+    fail = [] if bits else ["bits"]
+    if launches != [1, 1]:
+        fail.append("launches")
+    for name, got, want in (("out", out_, out_ref), ("dx", dx, dx_ref)):
+        out[f"{name}_max_abs_err"], _ = rel_err(got, want)
+        out[f"{name}_rel_err"] = out[f"{name}_max_abs_err"] / float(want.abs().max())
+        if not out[f"{name}_rel_err"] <= LAYER_NORM_TOL:
+            fail.append(name)
+    del xr, out_ref, dx_ref
+    torch.cuda.empty_cache()
+
+    def autograd_pair(fn):
+        """(forward, its backward alone) of ``fn`` on a leaf copy of x."""
+        leaf = x.detach().requires_grad_(True)
+        held = fn(leaf)
+        return (lambda: fn(leaf),
+                lambda: torch.autograd.grad(held, leaf, dout, retain_graph=True))
+
+    plain = autograd_pair(lambda t: wav2vec2._LayerNormFn.apply(t, weight, bias, eps))
+    lib_params = [p.to(torch.bfloat16) for p in (weight, bias)]
+    library = autograd_pair(lambda t: torch.nn.functional.layer_norm(t, (C,), *lib_params, eps))
+    n, stats = B * T * C, 4 * B * T
+    for i, (direction, call) in enumerate((("fwd", fwd), ("bwd", bwd))):
+        out[f"{direction}_ms"] = time_ms(call, iters)
+        out[f"{direction}_device_ms"] = fm_profile.graph_ms(call, 20)
+        out[f"{direction}_plain_ms"] = time_ms(plain[i], 2)
+        out[f"{direction}_library_ms"] = time_ms(library[i], 2)
+        ms, by = bound(0, 6 * n + stats, torch.bfloat16)
+        out[f"{direction}_bound_ms"], out[f"{direction}_bound_by"] = ms, by
+        out[f"{direction}_peak_share"] = ms / out[f"{direction}_device_ms"]
+    del plain, library
+    nosave = lambda: layer_norm.layer_norm_fwd(x, weight, bias, eps, save=False)
+    out["fwd_nosave_device_ms"] = fm_profile.graph_ms(nosave, 20)
+    out["fwd_nosave_peak_share"] = (bound(0, 4 * n, torch.bfloat16)[0]
+                                    / out["fwd_nosave_device_ms"])
+    if not torch.equal(nosave()[0], out_):
+        fail.append("nosave")
+    torch.cuda.empty_cache()
+    out["failed"] = fail
+    emit(out)
+    return out
+
+
 def phase_kernels(dev) -> dict:
     """Every check runs; the phase fails after them if any was out of
     tolerance. Returns the checks at the main path's shapes."""
@@ -650,6 +729,13 @@ def phase_kernels(dev) -> dict:
     at_main["fe_norm_l6"] = check_fe_norm(LV60_B // LV60_ACCUM, 512, 999, dev)
     results.append(check_fe_norm(4, 264, 777, dev))
     results.append(check_fe_norm(3, 512, 1, dev))
+    # K7 at an lv60 attack microbatch (20 s and 30 s), an lv60 eval batch,
+    # a base batch and lv60's feature projection
+    at_main["layer_norm_lv60"] = check_layer_norm(LV60_B // LV60_ACCUM, 999, 1024, dev)
+    results.append(check_layer_norm(16, 1499, 1024, dev))
+    results.append(check_layer_norm(LV60_B, 999, 1024, dev))
+    at_main["layer_norm_base"] = check_layer_norm(MAIN_B, 499, 768, dev)
+    results.append(check_layer_norm(LV60_B // LV60_ACCUM, 999, 512, dev))
     at_main["fm_norm_lv60"] = check_fm(spec_lv60, tables, "lv60")
     results.append(check_fm(spec_main.contiguous(), tables, "main_path_contiguous"))
     results.append(check_fm(spec_lv60.contiguous(), tables, "lv60_contiguous"))
@@ -747,9 +833,11 @@ def phase_tiny(dev) -> None:
     check(p_diff <= tol["new_p_max_abs"], f"tiny: new p differs by {p_diff}")
     # the gradient, the train step and the eval step each run the layers
     # forward; the first two also backward; the train step projects once
-    L = wav2vec2.get_config("wav2vec2-tiny").num_hidden_layers
+    mcfg = wav2vec2.get_config("wav2vec2-tiny")
+    L, ln = mcfg.num_hidden_layers, ln_layers(mcfg)
     # float32, head dim 16: the register route of K1/K2
-    check(launched == counts(attention_fwd=3 * L, attention_bwd=2 * L, fm_norm=1),
+    check(launched == counts(attention_fwd=3 * L, attention_bwd=2 * L, fm_norm=1,
+                             layer_norm=3 * ln, layer_norm_bwd=2 * ln),
           f"tiny: kernel launches on the card {launched}")
 
 
@@ -773,6 +861,23 @@ def fe_layers(mcfg) -> int:
     every layer of a LayerNorm feature extractor, in any compute dtype and
     under any conv lowering, none at base."""
     return len(mcfg.conv_dim) if mcfg.feat_extract_norm == "layer" else 0
+
+
+def ln_layers(mcfg) -> int:
+    """LayerNorms that launch K7 in one forward on the card: two a layer,
+    the one before (post-LN) or after (pre-LN) the stack, and the feature
+    projection's."""
+    return 2 * mcfg.num_hidden_layers + 2
+
+
+def ln_step(mcfg, accum: int) -> dict:
+    """K7's launches in a train step of ``accum`` microbatches: each
+    LayerNorm once each way a microbatch; the ``full`` and ``save_resid``
+    remat policies run each layer's two forward again in the backward."""
+    again = 2 * mcfg.num_hidden_layers if mcfg.remat and mcfg.remat_policy in (
+        "full", "save_resid") else 0
+    return {"layer_norm": (ln_layers(mcfg) + again) * accum,
+            "layer_norm_bwd": ln_layers(mcfg) * accum}
 
 
 def fe_step(mcfg, accum: int) -> dict:
@@ -815,10 +920,11 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
     # one projection; the eval step is one forward pass over the batch
     # (bf16, head dim 64: the wgmma route of K1/K2); the positional conv
     # once each way a microbatch, through K5 in bf16; lv60's feature
-    # extractor through K6 (fe_step)
+    # extractor through K6 (fe_step); every LayerNorm through K7 (ln_step)
     pc = int(mcfg.compute_dtype == "bfloat16")
     per_step = counts(attention_fwd_sm90=k1 * L * accum, attention_bwd_sm90=L * accum, fm_norm=1,
-                      pos_conv=pc * accum, pos_conv_dgrad=pc * accum, **fe_step(mcfg, accum))
+                      pos_conv=pc * accum, pos_conv_dgrad=pc * accum, **fe_step(mcfg, accum),
+                      **ln_step(mcfg, accum))
     times = lambda n: {k: v * n for k, v in per_step.items()}
     torch.cuda.reset_peak_memory_stats(dev)
     _lib.reset_launches()
@@ -843,7 +949,8 @@ def phase_full_width(dev, phase: str, preset: str, B: int, T: int, accum: int,
     launches = dict(_lib.launches)
     want = {**times(n), "attention_fwd_sm90": times(n)["attention_fwd_sm90"] + L,
             "pos_conv": times(n)["pos_conv"] + pc,
-            "fe_norm": times(n)["fe_norm"] + fe_layers(mcfg)}
+            "fe_norm": times(n)["fe_norm"] + fe_layers(mcfg),
+            "layer_norm": times(n)["layer_norm"] + ln_layers(mcfg)}
     check(launches == want, f"{phase}: eval step launched {launches}, want {want}")
     peak = torch.cuda.max_memory_allocated(dev)
     p_abs = float(p.abs().max())
@@ -953,11 +1060,15 @@ def expected_cli_launches(argv: list[str], facts: dict, fm: bool, route: str,
     suffix of the attention counters ("" for the register route, "_sm90" for wgmma).
     Each forward runs the positional conv once and each backward its input
     gradient, through K5 under the bf16 compute dtype, and lv60's feature
-    extractor K6 once a layer each way (no CLI flag turns on its remat)."""
+    extractor K6 once a layer each way (no CLI flag turns on its remat);
+    every LayerNorm K7 once each way, and again forward under the remat
+    policies that recompute it (ln_step)."""
     args = parser.create_arg_parser().parse_known_args(argv)[0]
     pc = int(args.compute_dtype == "bfloat16")
-    fe = fe_layers(wav2vec2.get_config(args.model, compute_dtype=args.compute_dtype,
-                                       conv_impl=args.conv_impl))
+    remat, policy = parser.resolve_remat(args)
+    mcfg = wav2vec2.get_config(args.model, compute_dtype=args.compute_dtype,
+                               conv_impl=args.conv_impl, remat=remat, remat_policy=policy)
+    fe, ln = fe_layers(mcfg), ln_step(mcfg, 1)
     A = args.accum_steps
     L = wav2vec2.get_config(args.model).num_hidden_layers
     nb = lambda n: math.ceil(n / args.batch_size)
@@ -967,7 +1078,9 @@ def expected_cli_launches(argv: list[str], facts: dict, fm: bool, route: str,
                      f"attention_bwd{route}": L * A * steps,
                      "fm_norm": (steps + cells) if fm else 0,
                      "pos_conv": pc * (A * steps + evals), "pos_conv_dgrad": pc * A * steps,
-                     "fe_norm": fe * (A * steps + evals), "fe_norm_bwd": fe * A * steps})
+                     "fe_norm": fe * (A * steps + evals), "fe_norm_bwd": fe * A * steps,
+                     "layer_norm": ln["layer_norm"] * A * steps + ln_layers(mcfg) * evals,
+                     "layer_norm_bwd": ln["layer_norm_bwd"] * A * steps})
 
 
 def phase_cli(card: str) -> dict:
@@ -1190,15 +1303,17 @@ def pretrain_launches(cfg, pipe, history: dict, route: str) -> dict:
     """What a pretraining run launches: every layer forward and backward per
     step, forward per batch of each eval pass and of the final test pass;
     the positional conv once a forward and once a backward, through K5 under
-    the bf16 compute dtype (base; the tiny recipe runs float32)."""
+    the bf16 compute dtype (base; the tiny recipe runs float32); every
+    LayerNorm through K7 once a forward and once a backward."""
     mcfg = wav2vec2.get_config(cfg.model)
-    L, pc = mcfg.num_hidden_layers, int(mcfg.compute_dtype == "bfloat16")
+    L, pc, ln = mcfg.num_hidden_layers, int(mcfg.compute_dtype == "bfloat16"), ln_layers(mcfg)
     nb = lambda split: math.ceil(len(split) / cfg.batch_size)
     steps = history["eval_step"][-1]  # the run ends at an eval
     evals = len(history["eval_step"]) * nb(pipe.eval) + nb(pipe.test)
     return counts(**{f"attention_fwd{route}": L * (steps + evals),
                      f"attention_bwd{route}": L * steps,
-                     "pos_conv": pc * (steps + evals), "pos_conv_dgrad": pc * steps})
+                     "pos_conv": pc * (steps + evals), "pos_conv_dgrad": pc * steps,
+                     "layer_norm": ln * (steps + evals), "layer_norm_bwd": ln * steps})
 
 
 def run_pretrain(name: str, argv: list[str]) -> tuple[dict, dict, float, str]:
@@ -1509,9 +1624,11 @@ def phase_parallel(dev, card: str, anchor: dict) -> dict:
     records, seconds = run_ranks("steps", root, [])
     # per rank: ∂loss/∂p and two steps, each every layer forward and
     # backward (bf16, head dim 64: the wgmma route), each step one K3; every
-    # rank runs the whole positional conv, K5 once each way a pass
+    # rank runs the whole positional conv, K5 once each way a pass, and every
+    # LayerNorm over whole rows, K7 once each way a pass
+    ln = ln_layers(wav2vec2.get_config("wav2vec2-base"))
     want = counts(attention_fwd_sm90=3 * L, attention_bwd_sm90=3 * L, fm_norm=2, pos_conv=3,
-                  pos_conv_dgrad=3)
+                  pos_conv_dgrad=3, layer_norm=3 * ln, layer_norm_bwd=3 * ln)
     for name, B in (("dp", PAR_DP_B), ("tp", PAR_TP_B)):
         ref = refs[name]
         saved = [torch.load(os.path.join(root, f"{name}_rank{r}.pt"), weights_only=True)
@@ -2032,6 +2149,8 @@ K3_TPU = "paa_tpu/ops/pallas/fm_norm.py:40 (_kernel, via fm_weighted_power_sum :
 K5_TPU = "none: paa_tpu/models/wav2vec2.py:535-573 runs lax.conv_general_dilated"
 K6_TPU = ("none: paa_tpu/models/wav2vec2.py:445-456 runs the bias add, _FeNorm (:475) and "
           "nn.gelu as jnp operations, which XLA fuses")
+K7_TPU = ("none: paa_tpu/models/wav2vec2.py:803-852 runs _layernorm (a custom VJP) as jnp "
+          "operations, which XLA fuses")
 REMAT_NAMES = tuple(name for name, _ in REMAT_RUNS)  # phase 11 (a), at phase 5's shapes
 # phase 12 (a) and (d), at phase 4's shapes; (b), at phase 5's
 LOWERING_BASE_NAMES = tuple(f"lowering_base_{impl}" for impl in CONV_IMPLS) + ("fused_qkv",)
@@ -2109,6 +2228,15 @@ KERNELS = (
        ("lv60",) + REMAT_NAMES + ("remat_a1", "cli_lv60", "cli_lv60_remat")
        + LOWERING_LV60_NAMES, f"fe_norm_{layer}", d)
       for layer in ("l0", "l6") for d, counter in (("fwd", "fe_norm"), ("bwd", "fe_norm_bwd"))),
+    # K7 at an lv60 microbatch and a base batch; each run launches it at
+    # every LayerNorm, the feature projection's (C = 512 at lv60) included
+    *((f"layer_norm_{d}_{model}", counter, "paa_tpu_torch/csrc/layer_norm.cu", K7_TPU, runs,
+       f"layer_norm_{model}", d)
+      for model, runs in (("lv60", ("lv60",) + REMAT_NAMES + ("remat_a1", "cli_lv60",
+                                                             "cli_lv60_remat")
+                           + LOWERING_LV60_NAMES),
+                          ("base", ("main",) + LOWERING_BASE_NAMES))
+      for d, counter in (("fwd", "layer_norm"), ("bwd", "layer_norm_bwd"))),
 )
 
 
@@ -2118,8 +2246,9 @@ def kernel_row(check_out: dict, direction: str | None) -> dict:
         keys = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         return {k: check_out[k] for k in keys}
-    if check_out["kernel"] == "fe_norm":  # K6
-        return {"shape": [check_out[k] for k in ("B", "C", "T")], "dtype": check_out["dtype"],
+    if check_out["kernel"] in ("fe_norm", "layer_norm"):  # K6, K7
+        dims = ("B", "C", "T") if check_out["kernel"] == "fe_norm" else ("B", "T", "C")
+        return {"shape": [check_out[k] for k in dims], "dtype": check_out["dtype"],
                 "max_abs_err": check_out["out_max_abs_err" if direction == "fwd" else
                                          "dx_max_abs_err"],
                 **{k: check_out[f"{direction}_{k}"] for k in (

@@ -22,11 +22,13 @@ Numerics follow the reference's placement:
     or hybrid (cuDNN forward, ``_HybridConvFn``'s phase-matmul backward)
     on the reference's (B, T, C);
   * ``fused_qkv`` computes q, k and v in one product a layer;
-  * the encoder's and the feature projection's LayerNorms (``_LayerNormFn``)
-    take the reference's fast variance, ``max(E[x²] − E[x]², 0)``, and keep
-    only x̂ in the input's dtype and 1/std for the backward; the FFN's GELU
-    (``_GeluFn``) keeps only its input, and with ``remat_ffn`` the whole FFN
-    (``_FFNFn``) keeps its input and weights and recomputes the hidden;
+  * the encoder's and the feature projection's LayerNorms (``_layer_norm``:
+    K7 in ``ops/kernels/layer_norm.py`` for a CUDA tensor, ``_LayerNormFn``
+    on the CPU) take the reference's fast variance,
+    ``max(E[x²] − E[x]², 0)``, and keep only x̂ in the input's dtype and
+    1/std for the backward; the FFN's GELU (``_GeluFn``) keeps only its
+    input, and with ``remat_ffn`` the whole FFN (``_FFNFn``) keeps its input
+    and weights and recomputes the hidden;
   * ``remat`` checkpoints the encoder layers under one of four policies, and
     ``remat_feature_extractor`` the conv stack (``torch.utils.checkpoint``,
     only while grad is on);
@@ -57,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 
 from paa_tpu_torch.ops.kernels.attention import attention
 from paa_tpu_torch.ops.kernels.fe_norm import bias_norm_gelu, fe_norm_gelu
+from paa_tpu_torch.ops.kernels.layer_norm import layer_norm
 from paa_tpu_torch.ops.kernels.pos_conv import positional_conv
 from paa_tpu_torch.parallel import tp
 from paa_tpu_torch.spans import span
@@ -196,11 +199,12 @@ def _checkpoint(fn, *args):
 
 class _LayerNormFn(torch.autograd.Function):
     """LayerNorm over the last axis in float32, output in the input's dtype
-    (reference: ``_layernorm``, ``_LayerNorm``). The variance is the
-    reference's fast one, ``max(E[x²] − E[x]², 0)``, which loses digits
-    where |mean| ≫ std as Welford's would not: the port follows the
-    reference's formula. The backward keeps exactly x̂ in the input's dtype
-    and 1/std, never a float32 tensor of the input's size."""
+    (reference: ``_layernorm``, ``_LayerNorm``): the plain version of K7
+    (``ops/kernels/layer_norm.py``), and the route of every CPU tensor. The
+    variance is the reference's fast one, ``max(E[x²] − E[x]², 0)``, which
+    loses digits where |mean| ≫ std as Welford's would not: the port follows
+    the reference's formula. The backward keeps exactly x̂ in the input's
+    dtype and 1/std, never a float32 tensor of the input's size."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps: float):
@@ -220,9 +224,7 @@ class _LayerNormFn(torch.autograd.Function):
         # dx = rstd·(dx̂ − mean(dx̂) − x̂·mean(dx̂·x̂)), dx̂ = g·γ. aten's fused
         # LayerNorm backward with x̂ as its input, mean 0 and 1/std 1 is the
         # bracket in one pass, and dγ = Σ g·x̂, dβ = Σ g as they stand; the
-        # true 1/std scales dx as it is written in the input's dtype. The
-        # same formula in plain elementwise passes took twice the time at
-        # lv60's and base's shapes (tools/layernorm_ab.py, PERF.md §6).
+        # true 1/std scales dx as it is written in the input's dtype.
         xhat, rstd, weight = ctx.saved_tensors
         need = [bool(n) for n in ctx.needs_input_grad[:3]]
         # its bias argument only shapes dβ, which has γ's shape
@@ -234,7 +236,12 @@ class _LayerNormFn(torch.autograd.Function):
 
 
 def _layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-    """float32 statistics, output in the input's dtype, lean backward."""
+    """``norm`` over the last axis of ``x``: float32 statistics, output in
+    the input's dtype, a backward that keeps x̂ and 1/std only. K7
+    (``ops/kernels/layer_norm.py``) for a CUDA tensor, which raises on one
+    it does not take; :class:`_LayerNormFn` for a CPU one."""
+    if x.is_cuda:
+        return layer_norm(x, norm.weight, norm.bias, norm.eps)
     return _LayerNormFn.apply(x, norm.weight, norm.bias, norm.eps)
 
 

@@ -19,8 +19,9 @@ Each block, as ``modeling_wav2vec2_conformer.py`` writes it:
     x = LN(x + ½·FFN₂(LN(x)))
 
 Numerics as lv60's: products in the compute dtype with float32 sums, every
-LayerNorm through ``_LayerNormFn`` (float32 statistics), the head in
-float32. The BatchNorm's scale ``γ/√(var + ε)`` and shift ``β − mean·scale``
+LayerNorm through ``_layer_norm`` (float32 statistics and the fast variance:
+K7 on the card, ``_LayerNormFn`` on the CPU), the head in float32. The
+BatchNorm's scale ``γ/√(var + ε)`` and shift ``β − mean·scale``
 are folded in float32 into the depthwise conv's weight and bias, which
 ``F.conv1d`` (cuDNN on the card) runs with its input gradient. The rotary
 table (HF's: ``cos`` and ``sin`` of ``t·base^(−2i/d)``, each head's two

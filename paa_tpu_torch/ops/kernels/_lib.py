@@ -27,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paa_tpu_torch"
 SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "attention_fwd_sm90.cu",
-           "attention_bwd_sm90.cu", "fm_norm.cu", "pos_conv.cu", "fe_norm.cu")
+           "attention_bwd_sm90.cu", "fm_norm.cu", "pos_conv.cu", "fe_norm.cu",
+           "layer_norm.cu")
 HEADERS = ("attention_common.cuh", "attention_sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,10 +40,12 @@ NVCC_FLAGS = (
 # attention_fwd_sm90/_bwd_sm90: the wgmma + TMA kernels (bf16, head dim 64);
 # pos_conv/_dgrad: the positional conv's forward and input gradient (bf16);
 # fe_norm/_bwd: the feature extractor's bias + LayerNorm + GELU, forward and
-# backward (bf16 and float32, either layout)
+# backward (bf16 and float32, either layout);
+# layer_norm/_bwd: the LayerNorm over the last axis, forward and backward
+# (bf16 and float32)
 launches = {"attention_fwd": 0, "attention_bwd": 0, "attention_fwd_sm90": 0,
             "attention_bwd_sm90": 0, "fm_norm": 0, "pos_conv": 0, "pos_conv_dgrad": 0,
-            "fe_norm": 0, "fe_norm_bwd": 0}
+            "fe_norm": 0, "fe_norm_bwd": 0, "layer_norm": 0, "layer_norm_bwd": 0}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -69,6 +72,10 @@ _SIGNATURES = {
     # g, y, bias, gamma, beta, mean, rstd, dx, partial, grid, B, C, T, tanh,
     # channels_last, is_bf16, stream
     "paa_fe_norm_bwd": (_P,) * 9 + (_I,) * 7 + (_P,),
+    # x, gamma, beta, out, xhat, rstd, rows, C, eps, is_bf16, stream
+    "paa_layer_norm_fwd": (_P,) * 6 + (_I, _I, _F, _I, _P),
+    # g, xhat, rstd, gamma, dx, partial, grid, rows, C, is_bf16, stream
+    "paa_layer_norm_bwd": (_P,) * 6 + (_I,) * 4 + (_P,),
     "paa_error_string": (_I,),
 }
 
@@ -151,6 +158,13 @@ def library() -> ctypes.CDLL:
     lib.paa_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def aligned(t):
+    """``t`` contiguous at a 16-byte aligned address (the row kernels load
+    and store 16 bytes at a time): a copy only where it is neither."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check(status: int, what: str) -> None:

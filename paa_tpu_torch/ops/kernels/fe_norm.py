@@ -94,13 +94,6 @@ def fe_norm_gelu_plain(y, bias, weight, bias_ln, eps: float, tanh: bool, dim: in
                           dim)
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous at a 16-byte aligned address (the row kernels load
-    and store 16 bytes at a time)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _check(name: str, y: torch.Tensor, dim: int) -> tuple[int, int, int]:
     """(B, C, T) of a conv output the kernel takes, with its channels on
     ``dim``; raises on any other."""
@@ -123,7 +116,7 @@ def _params(y: torch.Tensor, C: int, bias, weight, bias_ln) -> list[torch.Tensor
             t = y.new_zeros(C, dtype=torch.float32)
         if t.shape != (C,):
             raise ValueError(f"fe_norm: parameter of shape {tuple(t.shape)} for {C} channels")
-        out.append(_aligned(t.detach().to(device=y.device, dtype=torch.float32)))
+        out.append(_lib.aligned(t.detach().to(device=y.device, dtype=torch.float32)))
     return out
 
 
@@ -141,7 +134,7 @@ def fe_norm_fwd(y, bias, weight, bias_ln, eps: float, tanh: bool, stats: bool, d
     bfloat16 or float32 CUDA conv output with its channels on ``dim``;
     ``mean`` and ``rstd`` are float32 ``(B, T)`` with ``stats``, else None."""
     B, C, T = _check("fe_norm_fwd", y, dim)
-    y = _aligned(y)
+    y = _lib.aligned(y)
     prm = _params(y, C, bias, weight, bias_ln)
     out = torch.empty_like(y)
     mean = rstd = None
@@ -169,7 +162,7 @@ def fe_norm_bwd(g, y, bias, weight, bias_ln, mean, rstd, tanh: bool, wgrad: bool
     if g.shape != y.shape or g.dtype != y.dtype:
         raise ValueError(f"fe_norm_bwd: the gradient must be {y.dtype} {tuple(y.shape)}, got "
                          f"{g.dtype} {tuple(g.shape)}")
-    y, g = _aligned(y), _aligned(g)
+    y, g = _lib.aligned(y), _lib.aligned(g)
     prm = _params(y, C, bias, weight, bias_ln)
     dx = torch.empty_like(y)
     blocks = wgrad_blocks(y, dim) if wgrad else 0

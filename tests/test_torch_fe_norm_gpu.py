@@ -185,9 +185,15 @@ def test_lv60_launches_k6_once_a_layer_each_way(cuda, conv_impl):
     attack, evaluate = _attack_and_eval("wav2vec2-large-lv60", cuda, conv_impl=conv_impl)
     assert attack["fe_norm"] == 7 and attack["fe_norm_bwd"] == 7
     assert evaluate["fe_norm"] == 7 and evaluate["fe_norm_bwd"] == 0
+    # beside it K7 at every LayerNorm: 2 × 24 layers, the final one, the projection's
+    assert attack["layer_norm"] == attack["layer_norm_bwd"] == 50
+    assert evaluate["layer_norm"] == 50 and evaluate["layer_norm_bwd"] == 0
 
 
 def test_base_never_launches_k6(cuda):
     attack, evaluate = _attack_and_eval("wav2vec2-base", cuda)
     assert attack["fe_norm"] == attack["fe_norm_bwd"] == 0
     assert evaluate["fe_norm"] == evaluate["fe_norm_bwd"] == 0
+    # K7: 2 × 12 post-LN layers, the LayerNorm before the stack, the projection's
+    assert attack["layer_norm"] == attack["layer_norm_bwd"] == 26
+    assert evaluate["layer_norm"] == 26 and evaluate["layer_norm_bwd"] == 0

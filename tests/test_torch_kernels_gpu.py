@@ -209,9 +209,9 @@ def test_fm_projection_goes_through_the_kernel(cuda):
 
 def test_lv60_flags_accumulated_step_on_the_card(cuda):
     """The lv60 flags on tiny widths, float32, A=2: the card's train step
-    launches K1/K2 once per layer in each microbatch, K3 once and K6 once
-    each way a feature-extractor layer in each microbatch, and its loss and
-    new p match the CPU's plain path."""
+    launches K1/K2 once per layer in each microbatch, K3 once, K6 once
+    each way a feature-extractor layer and K7 once each way a LayerNorm in
+    each microbatch, and its loss and new p match the CPU's plain path."""
     from paa_tpu_torch.ops import text
     from paa_tpu_torch.attack import step
     from paa_tpu_torch.models import wav2vec2
@@ -238,11 +238,13 @@ def test_lv60_flags_accumulated_step_on_the_card(cuda):
     L = mcfg.num_hidden_layers
     # float32: the positional conv stays on the library's conv, K5 never runs;
     # the LayerNorm feature extractor runs K6 at each layer once each way a
-    # microbatch
-    fe = 2 * len(mcfg.conv_dim)
+    # microbatch; K7 runs each way at each of the pre-LN layer's two
+    # LayerNorms, the final one and the feature projection's, a microbatch
+    fe, ln = 2 * len(mcfg.conv_dim), 2 * (2 * L + 2)
     assert _lib.launches == {"attention_fwd": 2 * L, "attention_bwd": 2 * L,
                              "attention_fwd_sm90": 0, "attention_bwd_sm90": 0, "fm_norm": 1,
-                             "pos_conv": 0, "pos_conv_dgrad": 0, "fe_norm": fe, "fe_norm_bwd": fe}
+                             "pos_conv": 0, "pos_conv_dgrad": 0, "fe_norm": fe, "fe_norm_bwd": fe,
+                             "layer_norm": ln, "layer_norm_bwd": ln}
     want_p, want_loss = run(torch.device("cpu"))
     assert abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
     # PGD takes the gradient's sign: a sign near 0 may flip (2·lr at most)

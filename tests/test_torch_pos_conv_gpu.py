@@ -136,8 +136,8 @@ def test_weight_and_bias_gradients_in_pretraining(cuda):
 
 def test_bf16_accumulated_step_launches_k5_once_a_microbatch(cuda):
     """The tiny preset in bf16 with two microbatches: the train step launches
-    each direction of K5 once a microbatch, beside K1/K2's register route
-    and K3."""
+    each direction of K5 once a microbatch, beside K1/K2's register route,
+    K3 and K7."""
     from paa_tpu_torch.attack import step
     from paa_tpu_torch.config import AttackConfig, ConstraintParams
     from paa_tpu_torch.models import wav2vec2
@@ -156,7 +156,9 @@ def test_bf16_accumulated_step_launches_k5_once_a_microbatch(cuda):
     new_p, _, m = train(p, None, audio, labels, pads, torch.ones(4, device=cuda),
                         ConstraintParams.create(device=cuda), cfg.lr)
     L = mcfg.num_hidden_layers
+    ln = 2 * (2 * L + 2)  # K7: two a post-LN layer, the one before the stack, the projection's
     assert _lib.launches == {"attention_fwd": 2 * L, "attention_bwd": 2 * L,
                              "attention_fwd_sm90": 0, "attention_bwd_sm90": 0, "fm_norm": 1,
-                             "pos_conv": 2, "pos_conv_dgrad": 2, "fe_norm": 0, "fe_norm_bwd": 0}
+                             "pos_conv": 2, "pos_conv_dgrad": 2, "fe_norm": 0, "fe_norm_bwd": 0,
+                             "layer_norm": ln, "layer_norm_bwd": ln}
     assert bool(torch.isfinite(new_p).all()) and bool(torch.isfinite(m.ctc_loss))
