@@ -4,11 +4,11 @@ rows (an lv60 microbatch at 20 s and 30 s, an lv60 eval batch, a base
 batch, the feature projection's C = 512) and odd row counts at every width
 the port runs (32 and 64 tiny, 512, 768, 1024), in bf16 and float32; the
 same bits on a repeat; the reference's fast variance exactly on rows whose
-sums are exact; the weight gradients only when asked; no x̂ stored with
-grad off; inputs the kernel refuses raise; only the feature projection's
-transposed input is copied to rows; the launches of a full lv60, base and
-conformer attack step and eval batch at tiny widths; lv60's remat policies
-against remat off. Every test needs a CUDA device and skips without one (the
+sums are exact; the weight gradients only when asked; what the backward
+keeps; no x̂ stored with grad off; inputs the kernel refuses raise; only
+the feature projection's transposed input is copied to rows; the launches
+of a full lv60, base and conformer attack step and eval batch at tiny
+widths; lv60's remat policies against remat off. Every test needs a CUDA device and skips without one (the
 kernel has no CPU mode).
 
 The file imports no JAX, so it also runs on a machine that has none:
@@ -196,6 +196,20 @@ def test_no_xhat_with_grad_off(cuda, monkeypatch, dtype):
     with_grad = layer_norm.layer_norm(x.clone().requires_grad_(True), weight, bias, EPS)
     assert calls[-1][1]["save"] is True
     assert torch.equal(out, frozen) and torch.equal(out, with_grad.detach())
+
+
+@DTYPES
+def test_saves_xhat_and_rstd_only(cuda, dtype):
+    """What the backward keeps, as the plain version keeps it: x̂ in the
+    input's dtype, 1/std in float32 (one a row) and the scale parameter
+    itself; no float32 tensor of the input's size."""
+    x, _, _, _ = _inputs((2, 6, 32), cuda, dtype)
+    norm = torch.nn.LayerNorm(32, device=cuda)
+    out = wav2vec2._layer_norm(x.requires_grad_(True), norm)
+    xhat, rstd, weight = out.grad_fn.saved_tensors
+    assert xhat.dtype == dtype and xhat.shape == x.shape
+    assert rstd.dtype == torch.float32 and rstd.shape == (2, 6, 1)
+    assert weight is norm.weight
 
 
 def test_refused_inputs_raise(cuda):
