@@ -613,14 +613,17 @@ def fe_norm_more(out: dict, y, dout, params, mean, rstd, eps) -> list:
     return fail
 
 
-def check_layer_norm(B, T, C, dev, iters=20) -> dict:
+def check_layer_norm(B, T, C, dev, iters=20, wgrad=False) -> dict:
     """K7's forward (saving x̂ and 1/std, as under grad) and backward against
     the plain version in float32 on the same bf16 values, their bits on a
     repeat and one launch a call; each direction's ms, its device ms (a CUDA
     graph of 20 calls), its byte bound (6 B a value each way, 1/std's 4 B a
     row), the plain version's ms in bf16 (the route before K7) and the
     library's, ``F.layer_norm`` and its autograd backward alone; and the
-    forward with grad off (4 B a value), as an eval batch runs it."""
+    forward with grad off (4 B a value), as an eval batch runs it. With
+    ``wgrad``, also the backward with the weight gradients (pretraining's):
+    dγ and dβ against the plain version's, its dx equal to the one without
+    them, its bits on a repeat and its device ms."""
     g = torch.Generator(device=dev).manual_seed(T * 7 + C)
     x = (torch.randn((B, T, C), generator=g, device=dev) * 1.5 + 0.1).to(torch.bfloat16)
     dout = torch.randn((B, T, C), generator=g, device=dev).to(torch.bfloat16)
@@ -679,10 +682,38 @@ def check_layer_norm(B, T, C, dev, iters=20) -> dict:
                                     / out["fwd_nosave_device_ms"])
     if not torch.equal(nosave()[0], out_):
         fail.append("nosave")
+    if wgrad:
+        fail += layer_norm_wgrad(out, x, dout, xhat, rstd, weight, bias, eps, dx)
     torch.cuda.empty_cache()
     out["failed"] = fail
     emit(out)
     return out
+
+
+def layer_norm_wgrad(out: dict, x, dout, xhat, rstd, weight, bias, eps, dx) -> list:
+    """K7's backward with the weight gradients, as pretraining runs it: dγ
+    and dβ (one row a block of ``wgrad_blocks``, summed by the wrapper)
+    against the plain version's autograd in float32 on the same values, its
+    dx against ``dx`` of the backward without them, its bits on a repeat
+    and its device ms. Adds its numbers to ``out``; returns the names of
+    the checks that failed."""
+    call = lambda: layer_norm.layer_norm_bwd(dout, xhat, rstd, weight, wgrad=True)
+    dx_w, dw, db = call()
+    again = call()
+    leaves = [x.float().requires_grad_(True), weight.clone().requires_grad_(True),
+              bias.clone().requires_grad_(True)]
+    want = torch.autograd.grad(wav2vec2._LayerNormFn.apply(*leaves, eps), leaves,
+                               dout.float())
+    errs = {name: float((got - ref).abs().max() / ref.abs().max())
+            for name, got, ref in (("weight", dw, want[1]), ("bias", db, want[2]))}
+    del leaves, want
+    out.update(wgrad_rel_err=errs, wgrad_dx_equal=torch.equal(dx_w, dx),
+               wgrad_bits_repeat=all(torch.equal(a, b) for a, b in zip(again, (dx_w, dw, db))),
+               wgrad_blocks=layer_norm.wgrad_blocks(xhat),
+               wgrad_bwd_device_ms=fm_profile.graph_ms(call, 20))
+    ok = (max(errs.values()) <= LAYER_NORM_TOL and out["wgrad_dx_equal"]
+          and out["wgrad_bits_repeat"])
+    return [] if ok else ["wgrad"]
 
 
 def phase_kernels(dev) -> dict:
@@ -731,10 +762,11 @@ def phase_kernels(dev) -> dict:
     results.append(check_fe_norm(3, 512, 1, dev))
     # K7 at an lv60 attack microbatch (20 s and 30 s), an lv60 eval batch,
     # a base batch and lv60's feature projection
-    at_main["layer_norm_lv60"] = check_layer_norm(LV60_B // LV60_ACCUM, 999, 1024, dev)
+    at_main["layer_norm_lv60"] = check_layer_norm(LV60_B // LV60_ACCUM, 999, 1024, dev,
+                                                  wgrad=True)
     results.append(check_layer_norm(16, 1499, 1024, dev))
     results.append(check_layer_norm(LV60_B, 999, 1024, dev))
-    at_main["layer_norm_base"] = check_layer_norm(MAIN_B, 499, 768, dev)
+    at_main["layer_norm_base"] = check_layer_norm(MAIN_B, 499, 768, dev, wgrad=True)
     results.append(check_layer_norm(LV60_B // LV60_ACCUM, 999, 512, dev))
     at_main["fm_norm_lv60"] = check_fm(spec_lv60, tables, "lv60")
     results.append(check_fm(spec_main.contiguous(), tables, "main_path_contiguous"))

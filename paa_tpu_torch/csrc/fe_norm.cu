@@ -94,6 +94,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "row_io.cuh"
+
 namespace paa {
 namespace fenorm {
 namespace {
@@ -161,12 +163,6 @@ __device__ __forceinline__ float rcp(float x) {
   float y;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 struct TanhGelu {
@@ -415,40 +411,8 @@ __global__ void __launch_bounds__(kWarps * 32, 2) fe_norm_bwd_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// (B, T, C): the row kernels
-
-__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
-  const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
-  uint4 q;
-  uint32_t* w = &q.x;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  *reinterpret_cast<uint4*>(p) = q;
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
+// (B, T, C): the row kernels (their loads, stores and warp sums in
+// row_io.cuh, shared with layer_norm.cu)
 
 template <class Gelu, class E, bool kStats>
 __global__ void __launch_bounds__(kRowWarps * 32) fe_norm_rows_fwd_kernel(

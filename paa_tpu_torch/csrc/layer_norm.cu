@@ -35,7 +35,8 @@
 // N = ⌈C/256⌉ is a template parameter (2, 3 and 4 at C = 512, 768 and 1024,
 // every lane busy), so the row stays in registers between its sums and its
 // writes and each value is read from device memory once. The two sums of a
-// row are warp shuffles; 8 warps a block, one row each, so a microbatch of
+// row are warp shuffles (the loads, stores and sums are row_io.cuh's, which
+// K6's row kernels share); 8 warps a block, one row each, so a microbatch of
 // 31 968 rows is 3 996 blocks, several waves over the 132 SMs. Forward and
 // backward are each one launch.
 //   - With weight gradients the grid is the caller's: each warp walks rows
@@ -53,6 +54,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "row_io.cuh"
+
 namespace paa {
 namespace layernorm {
 namespace {
@@ -62,45 +65,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kWarps = 8;  // rows a block, one a warp
 constexpr int kMaxC = 1024;
 constexpr int kMaxChunks = kMaxC / 8 / 32;  // 8-value chunks a lane holds at most
-
-__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
-  const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
-  uint4 q;
-  uint32_t* w = &q.x;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  *reinterpret_cast<uint4*>(p) = q;
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // One row a warp; kSave writes x̂ and rstd for the backward.
 template <class E, int N, bool kSave>

@@ -29,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paa_tpu_torch"
 SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "attention_fwd_sm90.cu",
            "attention_bwd_sm90.cu", "fm_norm.cu", "pos_conv.cu", "fe_norm.cu",
            "layer_norm.cu")
-HEADERS = ("attention_common.cuh", "attention_sm90.cuh")
+HEADERS = ("attention_common.cuh", "attention_sm90.cuh", "row_io.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
