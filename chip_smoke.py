@@ -39,6 +39,12 @@ line:
                on a repeat, one launch a call, its byte bound, the plain
                version's ms and F.layer_norm with its autograd backward as
                ``library_ms``.
+               K8 (the relative conformer's attention, both directions) at
+               its 30 s and 20 s microbatches, (16, 1499, 16, 64) and (32,
+               999, 16, 64), and ragged small shapes: errors, bits on a
+               repeat, device ms beside its bound and K1's / K2's, and the
+               high-water mark a forward and a backward add above their
+               outputs.
   3. tiny    — the committed tiny checkpoint: one fletcher_munson PGD train
                step and one eval step on the card (through the kernels),
                held against the same steps on the CPU (plain versions, f32).
@@ -716,6 +722,86 @@ def layer_norm_wgrad(out: dict, x, dout, xhat, rstd, weight, bias, eps, dx) -> l
     return [] if ok else ["wgrad"]
 
 
+def check_relpos(B, T, H, dev, iters=20) -> dict:
+    """K8 (relative-position attention, bf16, head dim 64) against its plain
+    version: errors, bits on a repeat, the call's and the device's ms beside
+    its bound (6·B·H·T²·d operations forward, 14·B·H·T²·d backward) and K1's
+    and K2's device ms at the same shape, and how far a forward and a
+    backward raise the allocator's high-water mark above their inputs,
+    outputs, lse and scratch."""
+    d, dt = 64, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(T * 11 + B)
+    r = lambda rows, scale: (torch.randn((*rows, H * d), generator=g, device=dev)
+                             * scale).to(dt)
+    qu, qv, k, v, do = (r((B, T), 0.125), r((B, T), 0.125), r((B, T), 1.0), r((B, T), 1.0),
+                        r((B, T), 1.0))
+    pos = r((2 * T - 1,), 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    o, lse = attention.attention_relpos_fwd(qu, qv, k, v, pos, H)
+    grads = attention.attention_relpos_bwd(qu, qv, k, v, pos, o, lse, do, H)
+    torch.cuda.synchronize()
+    kept = o.nbytes + lse.nbytes + sum(t.nbytes for t in grads)
+    out = {"phase": "kernels", "kernel": "attention_relpos", "B": B, "T": T, "H": H, "d": d,
+           "dtype": "bfloat16", "tol_rel": ATTN_TOL[dt], "tol_lse_abs": LSE_ABS_TOL[dt],
+           "hwm_over_outputs_mib": (torch.cuda.max_memory_allocated() - base - kept) / 2**20,
+           "one_bhtt_bf16_mib": B * H * T * T * 2 / 2**20}
+    again = attention.attention_relpos_bwd(qu, qv, k, v, pos, o, lse, do, H)
+    o2, _ = attention.attention_relpos_fwd(qu, qv, k, v, pos, H)
+    out["bits_repeat"] = bool(torch.equal(o, o2)) and all(
+        bool(torch.equal(a, b)) for a, b in zip(grads, again))
+    del again, o2
+    o_ref, lse_ref = attention.attention_relpos_fwd_plain(qu, qv, k, v, pos, H)
+    out["lse_max_abs_err"] = rel_err(lse, lse_ref)[0]
+    out["o_max_abs_err"], out["o_rel_err"] = rel_err(o, o_ref)
+    del o_ref, lse_ref
+    want = attention.attention_relpos_bwd_plain(qu, qv, k, v, pos, o, lse, do, H)
+    for name, got, ref in zip(("dqu", "dqv", "dk", "dv"), grads, want):
+        out[f"{name}_max_abs_err"], out[f"{name}_rel_err"] = rel_err(got, ref)
+    del want
+    torch.cuda.empty_cache()
+    fail = [n for n in ("o", "dqu", "dqv", "dk", "dv") if not out[f"{n}_rel_err"] <= ATTN_TOL[dt]]
+    if not out["lse_max_abs_err"] <= LSE_ABS_TOL[dt]:
+        fail.append("lse")
+    if not out["bits_repeat"]:
+        fail.append("bits")
+    calls = 5 * iters
+    fwd = lambda: attention.attention_relpos_fwd(qu, qv, k, v, pos, H)
+    bwd = lambda: attention.attention_relpos_bwd(qu, qv, k, v, pos, o, lse, do, H)
+    out["fwd_ms"], out["bwd_ms"] = time_ms(fwd, iters), time_ms(bwd, iters)
+    out["fwd_device_ms"] = fm_profile.graph_ms(fwd, calls)
+    out["bwd_device_ms"] = fm_profile.graph_ms(bwd, calls)
+    o1, lse1 = attention.attention_fwd(qu, k, v, H)
+    out["k1_fwd_device_ms"] = fm_profile.graph_ms(lambda: attention.attention_fwd(qu, k, v, H),
+                                                  calls)
+    out["k2_bwd_device_ms"] = fm_profile.graph_ms(
+        lambda: attention.attention_bwd(qu, k, v, o1, lse1, do, H), calls)
+    n, stats, table = B * T * H * d * 2, B * H * T * 4, (2 * T - 1) * H * d * 2
+    out["fwd_bound_ms"], out["fwd_bound_by"] = bound(6 * B * H * T * T * d,
+                                                     5 * n + stats + table, dt)
+    out["bwd_bound_ms"], out["bwd_bound_by"] = bound(14 * B * H * T * T * d,
+                                                     10 * n + stats + table, dt)
+    out["fwd_share_of_bound"] = out["fwd_bound_ms"] / out["fwd_device_ms"]
+    out["bwd_share_of_bound"] = out["bwd_bound_ms"] / out["bwd_device_ms"]
+    out["fwd_over_k1"] = out["fwd_device_ms"] / out["k1_fwd_device_ms"]
+    out["bwd_over_k2"] = out["bwd_device_ms"] / out["k2_bwd_device_ms"]
+    out["failed"] = fail
+    emit(out)
+    return out
+
+
+def phase_relpos(dev) -> dict:
+    """K8 at the relative conformer's 30 s microbatch and at 20 s, and at
+    ragged small shapes."""
+    small = [check_relpos(2, T, 2, dev, iters=5) for T in (1, 65, 130)]
+    at_main = {"relpos_30s": check_relpos(16, 1499, 16, dev),
+               "relpos_20s": check_relpos(32, 999, 16, dev)}
+    bad = [r for r in small + list(at_main.values()) if r["failed"]]
+    check(not bad, f"K8 out of tolerance: {bad}")
+    return at_main
+
+
 def phase_kernels(dev) -> dict:
     """Every check runs; the phase fails after them if any was out of
     tolerance. Returns the checks at the main path's shapes."""
@@ -800,6 +886,7 @@ def phase_kernels(dev) -> dict:
                                               torch.bfloat16, dev)
     at_main["attention_tp"] = check_attention(PAR_TP_B, 499, 12 // PAR_RANKS, 64,
                                               torch.bfloat16, dev)
+    at_main.update(phase_relpos(dev))
     bad = [r for r in results + list(at_main.values()) if r["failed"]]
     check(not bad, f"kernels out of tolerance: {bad}")
     return at_main

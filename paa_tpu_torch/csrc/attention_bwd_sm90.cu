@@ -19,7 +19,8 @@
 // the only writer of its rows; the same inputs give the same bits). s and
 // dp are computed twice, once per gradient kernel: 7 products where the
 // algorithm needs 5, the price of determinism.
-//   1. prep: D = rowsum(do ∘ o) and lse·log2 e per (b, h, row), f32, into
+//   1. prep (attention_sm90.cuh, shared with K8): D = rowsum(do ∘ o) and
+//      lse·log2 e per (b, h, row), f32, into
 //      scratch padded to a multiple of 128 rows; padded rows get D = 0 and
 //      lse·log2 e = +∞, so their p is exactly 0 without a mask.
 //   2. dkdv: a block owns 128 keys of one head (two consumer warpgroups of
@@ -47,45 +48,6 @@ namespace sm90 {
 namespace {
 
 constexpr int kStages = 4;
-constexpr int kWarpsPrep = 8;
-// Rows of the scratch arrays (D and lse·log2 e) are padded to a multiple of
-// this, so that every query tile of either gradient kernel lies inside them.
-constexpr int kRowPad = 128;
-
-// D and lse·log2 e of row (b, h, t) for t < Tpad: 8 threads per row, each
-// reading 16 bytes of do and of o.
-__global__ void __launch_bounds__(32 * kWarpsPrep)
-attn_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, float* __restrict__ delta,
-                     float* __restrict__ lse2, int B, int T_len, int H, int Tpad) {
-  const long row = (static_cast<long>(blockIdx.x) * 32 * kWarpsPrep + threadIdx.x) / 8;
-  const int part = threadIdx.x % 8;
-  const bool in_range = row < static_cast<long>(B) * H * Tpad;
-  const int t = static_cast<int>(row % Tpad);
-  const long bh = row / Tpad;
-  float acc = 0.0f;
-  if (in_range && t < T_len) {
-    const int h = static_cast<int>(bh % H);
-    const long b = bh / H;
-    const long off = ((b * T_len + t) * H + h) * kD + 8 * part;
-    const uint4 x = *reinterpret_cast<const uint4*>(dout + off);
-    const uint4 y = *reinterpret_cast<const uint4*>(o + off);
-    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
-    const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 a = __bfloat1622float2(x2[e]);
-      const float2 c = __bfloat1622float2(y2[e]);
-      acc = fmaf(a.x, c.x, fmaf(a.y, c.y, acc));
-    }
-  }
-#pragma unroll
-  for (int s = 4; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
-  if (in_range && part == 0) {
-    delta[row] = acc;
-    lse2[row] = t < T_len ? lse[bh * T_len + t] * kLog2e : INFINITY;
-  }
-}
 
 // ---- dk, dv ----------------------------------------------------------------
 
@@ -407,12 +369,7 @@ extern "C" int paa_attention_bwd_sm90(const void* q, const void* k, const void* 
   float* delta = static_cast<float*>(scratch);
   float* lse2 = delta + static_cast<long>(B) * H * Tpad;
 
-  const long rows = static_cast<long>(B) * H * Tpad;  // 4·kWarpsPrep rows per block
-  attn_bwd_prep_kernel<<<static_cast<unsigned>((rows + 4 * kWarpsPrep - 1) / (4 * kWarpsPrep)),
-                         32 * kWarpsPrep, 0, st>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      delta, lse2, B, T_len, H, Tpad);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_bwd_prep(o, dout, lse, delta, lse2, B, T_len, H, Tpad, st);
   if (err != cudaSuccess) return err;
 
   // dkdv streams query tiles of 64 rows and holds 128 keys; dq holds 128

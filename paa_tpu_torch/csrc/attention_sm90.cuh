@@ -152,7 +152,8 @@ __device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
 // elementwise work (exp2, ds) together, leaving the tensor cores idle in
 // between; taking turns keeps one warpgroup's elementwise work beside the
 // other's products. Both warpgroups issue the same number of groups; the
-// last group's pass is the `last` one. The backward kernels use it
+// last group's pass is the `last` one. The backward kernels (and K8's
+// three, attention_relpos_sm90.cu) use it
 // (tools/attention_variants.py times them without it); K1, whose loop is
 // software-pipelined, did not gain from it and does not use it.
 struct PingPong {
@@ -251,6 +252,67 @@ __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+
+// ---- the backward's row statistics (K2 and K8) ------------------------------
+
+// Rows of the backward's scratch arrays (D and lse·log2 e) are padded to a
+// multiple of this, so that every query tile of a gradient kernel lies
+// inside them.
+constexpr int kRowPad = 128;
+constexpr int kWarpsPrep = 8;
+
+namespace {
+
+// D = rowsum(do ∘ o) and lse·log2 e of row (b, h, t) for t < Tpad: 8
+// threads per row, each reading 16 bytes of do and of o; padded rows get
+// D = 0 and lse·log2 e = +∞, so that their p is exactly 0 without a mask.
+__global__ void __launch_bounds__(32 * kWarpsPrep)
+attn_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, float* __restrict__ delta,
+                     float* __restrict__ lse2, int B, int T_len, int H, int Tpad) {
+  const long row = (static_cast<long>(blockIdx.x) * 32 * kWarpsPrep + threadIdx.x) / 8;
+  const int part = threadIdx.x % 8;
+  const bool in_range = row < static_cast<long>(B) * H * Tpad;
+  const int t = static_cast<int>(row % Tpad);
+  const long bh = row / Tpad;
+  float acc = 0.0f;
+  if (in_range && t < T_len) {
+    const int h = static_cast<int>(bh % H);
+    const long b = bh / H;
+    const long off = ((b * T_len + t) * H + h) * kD + 8 * part;
+    const uint4 x = *reinterpret_cast<const uint4*>(dout + off);
+    const uint4 y = *reinterpret_cast<const uint4*>(o + off);
+    const __nv_bfloat162* x2 = reinterpret_cast<const __nv_bfloat162*>(&x);
+    const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 a = __bfloat1622float2(x2[e]);
+      const float2 c = __bfloat1622float2(y2[e]);
+      acc = fmaf(a.x, c.x, fmaf(a.y, c.y, acc));
+    }
+  }
+#pragma unroll
+  for (int s = 4; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+  if (in_range && part == 0) {
+    delta[row] = acc;
+    lse2[row] = t < T_len ? lse[bh * T_len + t] * kLog2e : INFINITY;
+  }
+}
+
+// Launch the kernel above over (B, H, Tpad) rows: delta and lse2 are the
+// two halves of the backward's float32 scratch.
+inline cudaError_t launch_bwd_prep(const void* o, const void* dout, const void* lse, float* delta,
+                                   float* lse2, int B, int T_len, int H, int Tpad,
+                                   cudaStream_t st) {
+  const long rows = static_cast<long>(B) * H * Tpad;  // 4·kWarpsPrep rows per block
+  attn_bwd_prep_kernel<<<static_cast<unsigned>((rows + 4 * kWarpsPrep - 1) / (4 * kWarpsPrep)),
+                         32 * kWarpsPrep, 0, st>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      delta, lse2, B, T_len, H, Tpad);
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 // ---- host ----------------------------------------------------------------
 

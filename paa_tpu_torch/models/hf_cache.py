@@ -28,6 +28,7 @@ HF_REPOS = {
     "wav2vec2-base": "facebook/wav2vec2-base-960h",
     "wav2vec2-large-lv60": "facebook/wav2vec2-large-960h-lv60-self",
     "wav2vec2-conformer-rope-large": "facebook/wav2vec2-conformer-rope-large-960h-ft",
+    "wav2vec2-conformer-rel-pos-large": "facebook/wav2vec2-conformer-rel-pos-large-960h-ft",
 }
 WEIGHT_FILES = ("model.safetensors", "pytorch_model.bin")
 

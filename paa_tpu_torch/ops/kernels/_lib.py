@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paa_tpu_torch"
 SOURCES = ("attention_fwd.cu", "attention_bwd.cu", "attention_fwd_sm90.cu",
            "attention_bwd_sm90.cu", "fm_norm.cu", "pos_conv.cu", "fe_norm.cu",
-           "layer_norm.cu")
+           "layer_norm.cu", "attention_relpos_sm90.cu")
 HEADERS = ("attention_common.cuh", "attention_sm90.cuh", "row_io.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,10 +42,13 @@ NVCC_FLAGS = (
 # fe_norm/_bwd: the feature extractor's bias + LayerNorm + GELU, forward and
 # backward (bf16 and float32, either layout);
 # layer_norm/_bwd: the LayerNorm over the last axis, forward and backward
-# (bf16 and float32)
+# (bf16 and float32);
+# attention_relpos_fwd/_bwd: the relative-position attention K8 (bf16, head
+# dim 64)
 launches = {"attention_fwd": 0, "attention_bwd": 0, "attention_fwd_sm90": 0,
             "attention_bwd_sm90": 0, "fm_norm": 0, "pos_conv": 0, "pos_conv_dgrad": 0,
-            "fe_norm": 0, "fe_norm_bwd": 0, "layer_norm": 0, "layer_norm_bwd": 0}
+            "fe_norm": 0, "fe_norm_bwd": 0, "layer_norm": 0, "layer_norm_bwd": 0,
+            "attention_relpos_fwd": 0, "attention_relpos_bwd": 0}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
@@ -76,6 +79,10 @@ _SIGNATURES = {
     "paa_layer_norm_fwd": (_P,) * 6 + (_I, _I, _F, _I, _P),
     # g, xhat, rstd, gamma, dx, partial, grid, rows, C, is_bf16, stream
     "paa_layer_norm_bwd": (_P,) * 6 + (_I,) * 4 + (_P,),
+    # qu, qv, k, v, pos, o, lse, B, T, H, stream
+    "paa_attention_relpos_fwd_sm90": (_P,) * 7 + (_I,) * 3 + (_P,),
+    # qu, qv, k, v, pos, o, lse, do, dqu, dqv, dk, dv, scratch, B, T, H, stream
+    "paa_attention_relpos_bwd_sm90": (_P,) * 13 + (_I,) * 3 + (_P,),
     "paa_error_string": (_I,),
 }
 

@@ -20,6 +20,7 @@ SPANS = (
     "paa.pos_conv",  # PositionalConvEmbedding.forward, inside paa.encoder
     "paa.encoder",  # Encoder.forward, ConformerEncoder.forward
     "paa.attention",  # the model's call into the attention kernels
+    "paa.relpos",  # the relative conformer's biased queries and tables, inside paa.encoder
     "paa.conv_module",  # ConvolutionModule.forward, inside paa.encoder (the conformer)
     "paa.dwconv",  # inside paa.conv_module: the depthwise conv call
     "paa.ctc",  # the CTC loss of a microbatch or an eval batch

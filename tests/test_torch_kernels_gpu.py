@@ -244,7 +244,8 @@ def test_lv60_flags_accumulated_step_on_the_card(cuda):
     assert _lib.launches == {"attention_fwd": 2 * L, "attention_bwd": 2 * L,
                              "attention_fwd_sm90": 0, "attention_bwd_sm90": 0, "fm_norm": 1,
                              "pos_conv": 0, "pos_conv_dgrad": 0, "fe_norm": fe, "fe_norm_bwd": fe,
-                             "layer_norm": ln, "layer_norm_bwd": ln}
+                             "layer_norm": ln, "layer_norm_bwd": ln,
+                             "attention_relpos_fwd": 0, "attention_relpos_bwd": 0}
     want_p, want_loss = run(torch.device("cpu"))
     assert abs(got_loss - want_loss) <= 1e-4 * abs(want_loss)
     # PGD takes the gradient's sign: a sign near 0 may flip (2·lr at most)

@@ -39,8 +39,9 @@ def _runner(model, pipe, accum_steps=1, device_cache=None):
     return loop.AttackRunner(cfg, model, pipe, mesh=None)
 
 
-# opened only by the conformer's conv module, which the tiny wav2vec2 lacks
-CONFORMER_SPANS = {"paa.conv_module", "paa.dwconv"}
+# opened only by the conformer's conv module and the relative conformer's
+# positions, which the tiny wav2vec2 lacks
+CONFORMER_SPANS = {"paa.conv_module", "paa.dwconv", "paa.relpos"}
 
 
 def _epoch(runner):
